@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card (an H100 is
-the target).  It drives the port's main path, ``Alignment`` from
-``euispice_coreg_tpu_torch``, once at the size of the repo's headline case
-(a 2048^2 HRIEUV-like pair), and checks every hand-written kernel on that
-path against its plain PyTorch version.  It imports nothing of JAX.
+the target).  It drives the port's paths, ``Alignment`` from
+``euispice_coreg_tpu_torch``, at the size of the repo's headline cases
+(2048^2 pairs), and checks every hand-written kernel on those paths against
+its plain PyTorch version.  It imports nothing of JAX.
 Phases (each prints its own lines; any failure exits nonzero):
 
 1. device   -- requires torch.cuda.is_available(); prints the card's name
                and power limit (nvidia-smi), torch and CUDA versions.
-2. build    -- builds K1 (csrc/warp_score.cu) with nvcc for sm_90a into
+2. build    -- builds K1 (csrc/warp_score.cu) and K2 (csrc/quad_score.cu)
+               with nvcc for sm_90a, in parallel, into
                euispice_coreg_tpu_torch/build/ and prints the seconds.
 3. kernels  -- K1 against its plain version on the card: 512^2 and 2048^2,
                TAN and CAR, orders 0/1/2, lags with crota and cdelt parts,
                NaN holes.  Six sums within 1e-5 of each sum's largest
                magnitude over the lags, r within 1e-5, argmax equal.  Then
                both timed at the slice-B lag grid (21x21x3 = 1323 lags).
+               K2 likewise: 512^2 and 2048^2, orders 0/1/2, correlation and
+               residus_masked, shifts of +-140 px, affine and quadratic
+               fields, a within-tile spread beyond the TPU kernel's bound,
+               NaN holes; same tolerances (r or residue std within 1e-5).
+               Then K2 and its plain version timed on one 21x21 = 441-lag
+               set at 2048^2, and K2 alone at 121x121 = 14641 lags.
 4. slice A  -- public API, lag_search_mode="auto", 121x121 CRVAL grid
                (0.5"): must take the FFT fast path and recover the injected
                +8" within 1"; rerun in float64 and compare.
@@ -26,8 +33,18 @@ Phases (each prints its own lines; any failure exits nonzero):
                crota: must launch K1 and recover +8" within 1.5" on the
                crota=0 plane; AlignmentResults + write_corrected_fits, read
                back, corrected CRVAL1 checked.
-6. summary  -- the kernels line (JSON), then {"ok": true, "device": ...}
-               as the last line.
+6. slice C  -- public API align_using_carrington, "fa", on a 2048^2 pair
+               (small 2"/px, CROTA 0.3, CRVAL1 mispointed by -8"; reference
+               2.4"/px) over a 2048^2 Carrington grid, 121x121 CRVAL grid
+               (0.5"): lag_search_mode="pallas" must launch K2 and recover
+               +8" within 1" (argmax and fit), and the corrected CRVAL1
+               must read back; "auto" must take the block FFT or the K2
+               select path and recover the same.  Then the coarse grid at
+               the engine level (121x121 at 2", +24" injected, "auto"): K2,
+               +24" within 3".  Then the "sunpy" branch (121x121 0.5",
+               "auto"): +8" within 1".
+7. summary  -- the kernels line (JSON, K1 and K2), then
+               {"ok": true, "device": ...} as the last line.
 """
 from __future__ import annotations
 
@@ -118,15 +135,22 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels built at once (one nvcc each, started together)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from euispice_coreg_tpu_torch.engine import _build
 
+    names = {"warp_score": "K1", "quad_score": "K2"}
     t0 = time.perf_counter()
-    _build.load("warp_score")
-    log(f"[build] K1 csrc/warp_score.cu: nvcc "
-        f"{_build.BUILD_SECONDS['warp_score']:.2f} s (load total "
-        f"{time.perf_counter() - t0:.2f} s) into "
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
+    total = time.perf_counter() - t0
+    for name, kid in names.items():
+        log(f"[build] {kid} csrc/{name}.cu: nvcc "
+            f"{_build.BUILD_SECONDS[name]:.2f} s")
+    log(f"[build] both loaded in {total:.2f} s (parallel) into "
         f"{os.path.relpath(_build.BUILD_DIR, REPO)}/")
-    return _build.BUILD_SECONDS["warp_score"]
+    return {k: _build.BUILD_SECONDS[k] for k in names}
 
 
 # ---------------------------------------------------------------------------
@@ -499,12 +523,382 @@ def phase_slice_b(p_large, p_small, hdr, tmp_dir):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+def k2_operands(n, device, seed):
+    """Pre-warped image and reference of an n x n case (smooth, positive,
+    NaN holes): the reference is the image moved by (dx, dy) = (5, -3)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n] * (512.0 / n)
+    warped = (100.0 + np.sin(xx / 9.0) * np.cos(yy / 13.0)
+              + 0.1 * rng.standard_normal((n, n)))
+    ref = np.roll(warped, (3, -5), axis=(0, 1)) \
+        + 0.05 * rng.standard_normal((n, n))
+    for img in (warped, ref):
+        for _ in range(4):
+            r0, c0 = rng.integers(0, n - n // 8, size=2)
+            img[r0:r0 + n // 32, c0:c0 + n // 16] = np.nan
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return t(warped), t(ref)
+
+
+def k2_check_coeffs():
+    """(8, 6, 2) lags after tests/test_pallas_quad.py: shifts of +-140 px,
+    affine + quadratic fields, a cross term, a within-tile spread (0.1 px
+    per px: 12.8 px over a 128-px tile) beyond the TPU kernel's max_m=6,
+    and the true shift."""
+    import numpy as np
+
+    c = np.zeros((8, 6, 2))
+    c[1, 2] = (37.3, -140.4)
+    c[2, 2] = (-139.6, 8.2)
+    c[3, 2] = (5.3, -2.1)
+    c[3, 0, 0] = 4e-3
+    c[3, 1, 1] = -6e-3
+    c[3, 3, 0] = 3e-6
+    c[3, 4, 1] = -4e-6
+    c[4, 5] = (2e-6, -1.5e-6)
+    c[5, 0, 0] = 0.1
+    c[6, 2] = (5.0, -3.0)
+    c[7, 2] = (5.4, -2.6)
+    c[7, 4, 1] = 5e-6
+    return c
+
+
+def k2_grid_coeffs(n_side, step):
+    """n_side^2 lags: shifts on a grid around the true (5, -3) with a small
+    affine and quadratic part, like a Carrington select fit."""
+    import numpy as np
+
+    off = (np.arange(n_side) - n_side // 2) * step
+    g1, g2 = np.meshgrid(off, off, indexing="ij")
+    c = np.zeros((n_side * n_side, 6, 2))
+    c[:, 2, 0] = 5.0 + g1.ravel()
+    c[:, 2, 1] = -3.0 + g2.ravel()
+    c[:, 0, 0] = 1e-4 * g1.ravel()
+    c[:, 1, 1] = -1e-4 * g2.ravel()
+    c[:, 3, 1] = 1e-7
+    return c
+
+
+def phase_k2_kernels(device):
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+
+    finish = {"correlation": warp_score.pearson_from_sums,
+              "residus_masked": quad_score.residus_from_sums}
+    max_err = 0.0
+    for n in (512, N):
+        warped, ref = k2_operands(n, device, seed=n)
+        table = torch.as_tensor(quad_score.coeff_table(k2_check_coeffs()),
+                                dtype=torch.float32, device=device)
+        for method in ("correlation", "residus_masked"):
+            canvas, ref_c = quad_score.quad_canvases(warped, ref,
+                                                     method=method)
+            for order in (0, 1, 2):
+                kw = dict(pad=quad_score.PAD, order=order, method=method)
+                got = quad_score.quad_score_sums(canvas, ref_c, table, **kw)
+                want = quad_score.quad_score_sums_reference(
+                    canvas, ref_c, table, **kw)
+                torch.cuda.synchronize()
+                got, want = got.cpu().numpy(), want.cpu().numpy()
+                scale = np.max(np.abs(want), axis=0)
+                sum_err = float(np.max(np.abs(got - want) / scale))
+                s_got, s_want = finish[method](got), finish[method](want)
+                s_err = float(np.max(np.abs(s_got - s_want)))
+                pick = np.nanargmax if method == "correlation" else np.nanargmin
+                same_arg = int(pick(s_got)) == int(pick(s_want))
+                log(f"[kernels] K2 {n}^2 {method} order {order}: sums "
+                    f"{sum_err:.2e} (tol {TOL:g} of each sum's max), |dscore| "
+                    f"{s_err:.2e} (tol {TOL:g}), best lag equal {same_arg} "
+                    f"({int(pick(s_want))}), n {int(want[0, 0])}..."
+                    f"{int(want[5, 0])}")
+                if not (sum_err <= TOL and s_err <= TOL and same_arg
+                        and np.all(want[:, 0] > 0)):
+                    raise AssertionError(
+                        f"K2 disagrees with its plain version ({n}^2 "
+                        f"{method} order {order})")
+                max_err = max(max_err, s_err)
+
+    # timing at 2048^2, order 2: one shared 441-lag set, then K2 at 14641
+    warped, ref = k2_operands(N, device, seed=5)
+    canvas, ref_c = quad_score.quad_canvases(warped, ref,
+                                             method="correlation")
+    kw = dict(pad=quad_score.PAD, order=2, method="correlation")
+    table = torch.as_tensor(quad_score.coeff_table(k2_grid_coeffs(21, 1.0)),
+                            dtype=torch.float32, device=device)
+    k_ms = cuda_ms(lambda: quad_score.quad_score_sums(canvas, ref_c, table,
+                                                      **kw))
+    p_ms = cuda_ms(lambda: quad_score.quad_score_sums_reference(
+        canvas, ref_c, table, **kw), repeat=1)
+    got = warp_score.pearson_from_sums(quad_score.quad_score_sums(
+        canvas, ref_c, table, **kw).cpu().numpy())
+    want = warp_score.pearson_from_sums(quad_score.quad_score_sums_reference(
+        canvas, ref_c, table, **kw).cpu().numpy())
+    err = float(np.max(np.abs(got - want)))
+    if not (err <= TOL and np.nanargmax(got) == np.nanargmax(want)):
+        raise AssertionError(f"K2 timing run disagrees: {err}")
+    max_err = max(max_err, err)
+    log(f"[kernels] K2 {N}^2 x {table.shape[0]} lags, order 2, correlation: "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, |dr| {err:.2e}")
+    table = torch.as_tensor(quad_score.coeff_table(k2_grid_coeffs(121, 0.5)),
+                            dtype=torch.float32, device=device)
+    big_ms = cuda_ms(lambda: quad_score.quad_score_sums(canvas, ref_c, table,
+                                                        **kw), repeat=2)
+    log(f"[kernels] K2 {N}^2 x {table.shape[0]} lags, order 2, correlation: "
+        f"kernel {big_ms:.3f} ms "
+        f"({N * N * table.shape[0] / (big_ms * 1e-3):.3e} pixel-lags/s)")
+    return max_err, (k_ms, p_ms, big_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: slice C, the Carrington path (align_using_carrington)
+# ---------------------------------------------------------------------------
+
+CARR_DATE = "2022-03-17T09:50:45"
+CARR_GRID = dict(lonlims=(117.0, 123.0), latlims=(-1.0, 7.0), shape=(N, N))
+CARR_LAGS = 121      # CRVAL lags per axis (bench.py GRID)
+CARR_STEP = 0.5      # arcsec, slice C and the sunpy branch
+COARSE_STEP = 2.0    # arcsec, the coarse run
+
+
+def carr_scene(lon_c, lat_c):
+    """Deterministic smooth blob field on the Carrington sphere."""
+    import numpy as np
+
+    out = np.full(lon_c.shape, 100.0)
+    rng = np.random.default_rng(11)
+    for _ in range(30):
+        cx = rng.uniform(116, 124)
+        cy = rng.uniform(-3, 7)
+        w = rng.uniform(0.3, 1.5)
+        out += rng.uniform(0.5, 3) * np.exp(
+            -(((lon_c - cx) ** 2) + ((lat_c - cy) ** 2)) / (2 * w * w))
+    return out
+
+
+def carr_header(cdelt, crval1, crval2, crota=0.3):
+    """A 2048^2 helioprojective header at 0.5 au looking at Carrington
+    (120, 3) deg; CRVAL/CDELT in arcsec."""
+    from euispice_coreg_tpu_torch.core.header import Header, pc_from_crota
+
+    cdelt = cdelt * 2048 / N  # the same field of view at any N
+    pc = pc_from_crota(crota, cdelt, cdelt)
+    return Header({
+        "NAXIS1": N, "NAXIS2": N, "CRVAL1": crval1, "CRVAL2": crval2,
+        "CRPIX1": (N + 1) / 2, "CRPIX2": (N + 1) / 2,
+        "CDELT1": cdelt, "CDELT2": cdelt, "CUNIT1": "arcsec",
+        "CUNIT2": "arcsec", "CROTA": crota, "PC1_1": pc[0], "PC1_2": pc[1],
+        "PC2_1": pc[2], "PC2_2": pc[3], "DSUN_OBS": 0.5 * 1.496e11,
+        "CRLN_OBS": 120.0, "CRLT_OBS": 3.0, "DATE-OBS": CARR_DATE,
+        "WAVELNTH": 174,
+    })
+
+
+def carr_render(hdr, d_solar_r=1.004):
+    """The Carrington scene as seen through a helioprojective header."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+
+    sc = carr.header_spherical_scalars(hdr, d_solar_r)
+    px, py = np.meshgrid(np.arange(N, dtype=np.float64),
+                         np.arange(N, dtype=np.float64))
+    lon_c, lat_c = carr.spherical_unproject(px, py, sc)
+    return np.where(np.isfinite(lon_c),
+                    carr_scene(np.nan_to_num(lon_c), np.nan_to_num(lat_c)),
+                    np.nan)
+
+
+def write_carr_pair(tmp_dir):
+    """The small image rendered through its true pointing and handed over
+    with CRVAL1 mispointed by -8"; the reference a second vantage of the
+    scene (2.4"/px, no roll) with correct pointing."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.io import fits
+
+    small = carr_render(carr_header(2.0, 150.0, 100.0))
+    hdr_given = carr_header(2.0, 150.0 - TRUE_SHIFT, 100.0)
+    hdr_large = carr_header(2.4, 148.0, 98.0, crota=0.0)
+    large = carr_render(hdr_large)
+    p_large = os.path.join(tmp_dir, "carr_large.fits")
+    p_small = os.path.join(tmp_dir, "carr_small.fits")
+    fits.write(p_large, [fits.PrimaryHDU(data=large.astype(np.float32),
+                                         header=hdr_large)])
+    fits.write(p_small, [fits.PrimaryHDU(data=small.astype(np.float32),
+                                         header=hdr_given)])
+    return p_large, p_small, hdr_given
+
+
+def carr_alignment(p_large, p_small, mode):
+    import numpy as np
+
+    from euispice_coreg_tpu_torch import Alignment
+
+    lag = (np.arange(CARR_LAGS) - CARR_LAGS // 2) * CARR_STEP
+    return lag, Alignment(p_large, p_small, lag_crval1=lag, lag_crval2=lag,
+                          small_fov_window=0, large_fov_window=0,
+                          lag_search_mode=mode, device=DEVICE)
+
+
+def check_recovery(label, lag, res, want, tol):
+    import numpy as np
+
+    plane = res.corr[:, :, 0, 0, 0, 0]
+    mi = np.unravel_index(np.nanargmax(plane), plane.shape)
+    if abs(lag[mi[0]] - want) >= tol or abs(res.shift_arcsec[0] - want) >= tol:
+        raise AssertionError(f"{label} missed {want:+.0f}\": argmax "
+                             f"{lag[mi[0]]}, fit {res.shift_arcsec}")
+    return (f"argmax {lag[mi[0]]:+.1f}\" / {lag[mi[1]]:+.1f}\", fit "
+            f"{res.shift_arcsec[0]:+.3f}\" / {res.shift_arcsec[1]:+.3f}\"")
+
+
+def phase_slice_c(p_large, p_small, hdr, tmp_dir, engine_log):
+    """lag_search_mode="pallas": the select path on K2."""
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score
+    from euispice_coreg_tpu_torch.io import fits
+
+    def run(return_type="AlignmentResults"):
+        lag, A = carr_alignment(p_large, p_small, "pallas")
+        out = A.align_using_carrington(reference_date=CARR_DATE,
+                                       return_type=return_type, **CARR_GRID)
+        torch.cuda.synchronize()
+        return lag, out
+
+    engine_log.lines.clear()
+    before = quad_score.LAUNCHES
+    t0 = time.perf_counter()
+    lag, res = run()
+    t_first = time.perf_counter() - t0
+    launched = quad_score.LAUNCHES - before
+    want_lines = ("engine path: carrington linearized select",
+                  f"carrington select: K2 quad kernel ({CARR_LAGS ** 2} lags)")
+    if launched <= 0 or not all(m in engine_log.lines for m in want_lines):
+        raise AssertionError(f"slice C did not run K2 ({launched} launches): "
+                             f"{engine_log.lines}")
+    rec = check_recovery("slice C", lag, res, TRUE_SHIFT, 1.0)
+
+    out_path = os.path.join(tmp_dir, "carr_small_corrected.fits")
+    res.write_corrected_fits([0], out_path)
+    back = fits.open(out_path)[0].header
+    want = hdr["CRVAL1"] + res.shift_arcsec[0]
+    true_crval1 = hdr["CRVAL1"] + TRUE_SHIFT
+    if not (abs(back["CRVAL1"] - want) < 1e-9
+            and abs(back["CRVAL1"] - true_crval1) < 1.0):
+        raise AssertionError(f"corrected CRVAL1 {back['CRVAL1']} (expected "
+                             f"{want}, true {true_crval1})")
+    t0 = time.perf_counter()
+    run("corr")
+    t_warm = time.perf_counter() - t0
+    log(f"[slice C] {N}^2 pair -> {N}^2 Carrington grid, {CARR_LAGS}^2 CRVAL "
+        f"grid, pallas: K2 {launched} launch(es), {rec}; first API call "
+        f"{t_first:.3f} s, warm {t_warm:.3f} s; corrected CRVAL1 "
+        f"{back['CRVAL1']:.4f}\" (true {true_crval1:.4f}\")")
+    log_stages("slice C", lambda: run("corr"))
+
+
+def phase_slice_c_auto(p_large, p_small, engine_log):
+    import torch
+
+    engine_log.lines.clear()
+    lag, A = carr_alignment(p_large, p_small, "auto")
+    t0 = time.perf_counter()
+    res = A.align_using_carrington(reference_date=CARR_DATE, **CARR_GRID)
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    paths = [m for m in ("engine path: carrington FFT fast",
+                         "engine path: carrington linearized select")
+             if m in engine_log.lines]
+    if len(paths) != 1:
+        raise AssertionError(f"slice C auto took neither the block FFT nor "
+                             f"the K2 select path: {engine_log.lines}")
+    rec = check_recovery("slice C auto", lag, res, TRUE_SHIFT, 1.0)
+    log(f"[slice C auto] {paths[0]!r}, {rec}, API call {t_api:.3f} s")
+
+
+def phase_coarse(engine_log):
+    """bench.py run_carrington_coarse at the engine level: +24" injected,
+    121x121 CRVAL grid at 2", "auto"."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+
+    small = carr_render(carr_header(2.0, 150.0 + 24.0, 100.0))
+    hdr_given = carr_header(2.0, 150.0, 100.0)
+    lon_g, lat_g = carr.carrington_grid(CARR_GRID["lonlims"],
+                                        CARR_GRID["latlims"],
+                                        CARR_GRID["shape"])
+    small_d = torch.as_tensor(small, dtype=torch.float32, device=DEVICE)
+    ref_d = torch.as_tensor(carr_scene(lon_g, lat_g), dtype=torch.float32,
+                            device=DEVICE)
+    l1 = (np.arange(CARR_LAGS) - CARR_LAGS // 2) * COARSE_STEP / 3600.0
+
+    def run():
+        out = carr.evaluate_lag_grid_carrington(
+            small_d, ref_d, hdr_given, CARR_GRID["lonlims"],
+            CARR_GRID["latlims"], CARR_GRID["shape"], l1, l1, [0.0], [0.0],
+            [0.0], d_solar_r=1.004, reference_date=CARR_DATE,
+            rate_wave="171", order=2, device=DEVICE, lag_mode="auto")
+        torch.cuda.synchronize()
+        return out
+
+    engine_log.lines.clear()
+    t0 = time.perf_counter()
+    corr = run()
+    t_first = time.perf_counter() - t0
+    if f"carrington select: K2 quad kernel ({CARR_LAGS ** 2} lags)" \
+            not in engine_log.lines:
+        raise AssertionError(f"coarse run did not take K2: {engine_log.lines}")
+    mi = np.unravel_index(np.nanargmax(corr), corr.shape)
+    got = l1[mi[0]] * 3600.0
+    if abs(got - 24.0) >= 3.0:
+        raise AssertionError(f"coarse run missed +24\": {got}")
+    t0 = time.perf_counter()
+    run()
+    t_warm = time.perf_counter() - t0
+    log(f"[coarse] {N}^2 grid, {CARR_LAGS}^2 at {COARSE_STEP}\", auto -> K2: argmax "
+        f"{got:+.1f}\" / {l1[mi[1]] * 3600.0:+.1f}\", engine call first "
+        f"{t_first:.3f} s, warm {t_warm:.3f} s")
+
+
+def phase_sunpy(p_large, p_small):
+    import torch
+
+    def run():
+        lag, A = carr_alignment(p_large, p_small, "auto")
+        res = A.align_using_carrington(method_carrington_reprojection="sunpy")
+        torch.cuda.synchronize()
+        return lag, res
+
+    t0 = time.perf_counter()
+    lag, res = run()
+    t_api = time.perf_counter() - t0
+    rec = check_recovery("sunpy", lag, res, TRUE_SHIFT, 1.0)
+    log(f"[sunpy] {N}^2, {CARR_LAGS}^2 CRVAL grid, auto: {rec}, API call "
+        f"{t_api:.3f} s")
+    log_stages("sunpy", run)
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, REPO)
     import torch
 
-    from euispice_coreg_tpu_torch.engine import warp_score
+    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
 
     engine_log = EngineLog()
     port_logger = logging.getLogger("euispice_coreg_tpu_torch")
@@ -513,11 +907,13 @@ def main():
 
     build_s = phase_build()
     max_err, times = phase_kernels(torch.device(DEVICE))
+    k2_err, k2_times = phase_k2_kernels(torch.device(DEVICE))
 
     with tempfile.TemporaryDirectory() as tmp_dir:
         p_large, p_small, hdr = write_pair(tmp_dir)
-        # the main path: every launch count starts at 0 here
+        # slices A and B: every launch count starts at 0 here
         warp_score.LAUNCHES = 0
+        quad_score.LAUNCHES = 0
         corr32 = phase_slice_a(p_large, p_small, engine_log)
         launches = phase_slice_b(p_large, p_small, hdr, tmp_dir)
         main_launches = warp_score.LAUNCHES
@@ -526,8 +922,23 @@ def main():
         phase_precision(p_large, p_small, corr32)
         time_fast_path(p_large, p_small)
 
+        # slice C: the Carrington path, counts from 0 again
+        c_large, c_small, c_hdr = write_carr_pair(tmp_dir)
+        warp_score.LAUNCHES = 0
+        quad_score.LAUNCHES = 0
+        phase_slice_c(c_large, c_small, c_hdr, tmp_dir, engine_log)
+        k2_launches = quad_score.LAUNCHES
+        if k2_launches <= 0:
+            raise AssertionError("K2 was not launched on the Carrington path")
+        phase_slice_c_auto(c_large, c_small, engine_log)
+        phase_coarse(engine_log)
+        phase_sunpy(c_large, c_small)
+
     k_ms, p_ms = times[N]
-    log(f"[summary] card {card}; K1 build {build_s:.2f} s")
+    k2_ms, k2_plain_ms, k2_big_ms = k2_times
+    log(f"[summary] card {card}; nvcc K1 {build_s['warp_score']:.2f} s, "
+        f"K2 {build_s['quad_score']:.2f} s; K2 at 14641 lags "
+        f"{k2_big_ms:.3f} ms")
     print(json.dumps({"kernels": [{
         "name": "warp_score (K1)",
         "route": "cuda",
@@ -537,6 +948,15 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "quad_score (K2)",
+        "route": "cuda",
+        "source": "euispice_coreg_tpu_torch/csrc/quad_score.cu",
+        "replaces": "euispice_coreg_tpu/engine/pallas_quad.py:39",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 Each kernel source in ``euispice_coreg_tpu_torch/csrc/`` is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 placed in ``euispice_coreg_tpu_torch/build/`` and loaded with ``ctypes``.
-The library name carries a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is built once per checkout.  Nothing
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt
+and an unchanged one is built once per checkout.  Nothing
 is compiled or loaded at import time: the first launch builds.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -30,7 +32,9 @@ NVCC_FLAGS = (
     "-fmad=false",
 )
 
-_lock = threading.Lock()
+# one lock per library, so that different kernels build concurrently
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when it was
 # already on disk); read by chip_smoke.py
@@ -53,16 +57,30 @@ def find_nvcc() -> str:
                        "are built from source at first use")
 
 
+def build_key(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every header ``csrc/*.cuh`` (the kernels
+    share device code through them) and ``NVCC_FLAGS``: the library's name,
+    so that a change to any of them rebuilds it."""
+    h = hashlib.sha256()
+    paths = [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(repr(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
-    with _lock:
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL.
+    Thread-safe; calls for different names build in parallel."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + repr(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+        digest = build_key(name)
         lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         BUILD_SECONDS[name] = 0.0
         if not os.path.isfile(lib_path):

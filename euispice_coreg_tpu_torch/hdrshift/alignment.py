@@ -1,27 +1,35 @@
 """Public coalignment API: the ``Alignment`` class (torch).
 
 Counterpart of ``euispice_coreg_tpu/hdrshift/alignment.py`` with the same
-constructor and the same ``align_using_helioprojective`` /
-``align_using_initial_carrington`` entry points, plus ``device``:
+constructor and the same three entry points (``align_using_helioprojective``,
+``align_using_initial_carrington``, ``align_using_carrington``), plus
+``device``:
 
 * FITS I/O and header math stay on the host (float64 numpy),
 * the reference image is resampled onto the comparison grid once on the
-  device (the reference's ``_create_submap_of_large_data``),
-* the 5-D lag hypercube is scored by ``engine.lag_search.evaluate_lag_grid``
-  on the device.
+  device (the reference's ``_create_submap_of_large_data``), or reprojected
+  onto the user's Carrington grid (``engine.carrington``),
+* the 5-D lag hypercube is scored on the device by
+  ``engine.lag_search.evaluate_lag_grid`` or, on a Carrington grid, by
+  ``engine.carrington.evaluate_lag_grid_carrington``.
 
 ``device`` is required to exist: ``device="cuda"`` without a card raises.
 ``parallelism`` and ``counts_cpu_max`` are accepted no-ops, as in the JAX
-package.  Not ported yet (ROADMAP.md): ``align_using_carrington``, the
-diagnostic figures (``path_save_figure``) and multi-device meshes.
+package.  Not ported yet (ROADMAP.md): the diagnostic figures
+(``path_save_figure``), the Carrington tile-FFT evaluator
+(``lag_search_mode="tile_fft"`` on a Carrington grid) and multi-device
+meshes.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..core import wcs as wcs_mod
 from ..core.header import ensure_pcij, get_crota, wcs_params_from_header
+from ..engine import carrington as carr_engine
 from ..engine import lag_search
 from ..utils import coords, units
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
@@ -37,11 +45,17 @@ class Alignment:
     * "auto" (default): CRVAL-only grids use the FFT fast path; mixed grids
       of more than 2000 candidates would use the block fleet path (not
       ported: raises ``NotImplementedError``), smaller ones the exact
-      per-lag engine;
+      per-lag engine.  On a Carrington grid: the per-combo FFT path, else
+      the quadratic-conjugation select path on kernel K2, else the per-lag
+      gather;
     * "exact": always the per-lag engine (K1 on a CUDA device for
       correlation at order 0-2);
-    * "fast"/"tile_fft": the FFT/block fast paths where applicable;
-    * "pallas": the fused warp+score kernel K1.
+    * "fast": the FFT/block fast paths where applicable (on a Carrington
+      grid as "auto");
+    * "pallas": the fused warp+score kernel K1; on a Carrington grid the
+      select path on K2 directly;
+    * "tile_fft": on a Carrington grid not ported (raises
+      ``NotImplementedError``); elsewhere as "fast".
     """
 
     def __init__(
@@ -128,6 +142,11 @@ class Alignment:
         self.hdr_small = None
         self.method = None
         self.coordinate_frame = None
+        self.lonlims = None
+        self.latlims = None
+        self.shape = None
+        self.reference_date = None
+        self.rat_wave = dict(carr_engine.RAT_WAVE)
 
     # ------------------------------------------------------------------
     # data loading / preprocessing (host)
@@ -279,11 +298,155 @@ class Alignment:
             return corr
         return self._make_results(corr)
 
-    def align_using_carrington(self, *args, **kwargs):
-        """Carrington-grid search: not ported yet (ROADMAP.md)."""
-        raise NotImplementedError(
-            "align_using_carrington: Carrington engine not yet ported, see "
-            "ROADMAP")
+    def align_using_carrington(
+        self,
+        lonlims=None,
+        latlims=None,
+        size_deg_carrington=None,
+        shape=None,
+        reference_date=None,
+        method: str = "correlation",
+        method_carrington_reprojection: str = "fa",
+        return_type: str = "AlignmentResults",
+    ):
+        """Lag search on a user Carrington lon/lat grid (alignment.py:144-261).
+
+        ``method_carrington_reprojection="fa"`` searches on an explicit
+        Carrington lon/lat grid.  ``"sunpy"`` reproduces the reference's
+        sunpy branch natively (no sunpy dependency): the reference image is
+        reprojected once onto the small image's own WCS assuming solar-
+        surface corotation (``alignment.py:939-985``), and the per-lag
+        search then runs in the small image's projected frame (lonlims/
+        latlims/shape/reference_date are not required, matching the
+        reference docstring).
+        """
+        if method_carrington_reprojection not in ("fa", "sunpy"):
+            raise ValueError(
+                "method_carrington_reprojection must be either 'fa' or 'sunpy'"
+            )
+        self.method = method
+        self.coordinate_frame = "final_carrington"
+        if self.data_small is None:
+            self._load_pair()
+        self._apply_thresholds()
+        if np.all(np.isnan(self.data_small)):
+            raise ValueError("minimum or maximum value have set all small FOV to nan")
+
+        if method_carrington_reprojection == "sunpy":
+            corr = self._run_solar_surface_search()
+            if return_type == "corr":
+                return corr
+            return self._make_results(corr)
+
+        if reference_date is None:
+            if "DATE-AVG" not in self.hdr_large:
+                raise ValueError(
+                    "Either provide a reference date manually or the reference "
+                    "file header must have a DATE-AVG keyword."
+                )
+            self.reference_date = self.hdr_large["DATE-AVG"]
+        else:
+            self.reference_date = reference_date
+
+        if (lonlims is None) and (latlims is None) and (size_deg_carrington is not None):
+            crln = self.hdr_small["CRLN_OBS"]
+            crlt = self.hdr_small["CRLT_OBS"]
+            self.lonlims = [crln - 0.5 * size_deg_carrington[0], crln + 0.5 * size_deg_carrington[0]]
+            self.latlims = [crlt - 0.5 * size_deg_carrington[1], crlt + 0.5 * size_deg_carrington[1]]
+            self.shape = [int(self.hdr_small["NAXIS1"]), int(self.hdr_small["NAXIS2"])]
+        elif (lonlims is not None) and (latlims is not None) and (shape is not None):
+            self.lonlims = list(lonlims)
+            self.latlims = list(latlims)
+            self.shape = list(shape)
+        else:
+            raise ValueError("either set lonlims as None, or not. no in between.")
+        if self.shape[0] * self.shape[1] > 25_000_000:
+            warnings.warn(
+                f"shape parameter is {self.shape}, which is very large. "
+                "Computational time might significantly increase"
+            )
+
+        wave = self.hdr_large.get("WAVELNTH")
+        rate_wave = self.rat_wave.get(str(int(wave))) if wave is not None else None
+
+        corr = self._run_carrington_fa_search(rate_wave)
+        if return_type == "corr":
+            return corr
+        return self._make_results(corr)
+
+    def _run_carrington_fa_search(self, rate_wave):
+        """Carrington explicit-grid search body: one reprojection of the
+        reference image and one lag search per ``lag_solar_r``, stacked on
+        the last axis (alignment.py:144-261)."""
+        from ..utils.obs import stage
+
+        l1, l2, l3, l4, l5 = self._lags_deg(wrap=True)
+        large = self._to_device(self.data_large)
+        small = self._to_device(self.data_small)
+        corr_parts = []
+        for d_solar_r in self.lag_solar_r:
+            with stage("carr_api_reproject_s"):
+                ref_img = carr_engine.reproject_to_carrington(
+                    large, self.hdr_large, self.lonlims, self.latlims,
+                    self.shape, d_solar_r=float(d_solar_r),
+                    reference_date=self.reference_date, rate_wave=rate_wave,
+                    order=self.order, device=self.device,
+                    compute_dtype=self.compute_dtype, as_numpy=False)
+            with self._progress_scope():
+                corr5 = carr_engine.evaluate_lag_grid_carrington(
+                    small, ref_img, self.hdr_small, self.lonlims,
+                    self.latlims, self.shape, l1, l2, l3, l4, l5,
+                    d_solar_r=float(d_solar_r),
+                    reference_date=self.reference_date, rate_wave=rate_wave,
+                    order=self.order, method=self.method, device=self.device,
+                    compute_dtype=self.compute_dtype,
+                    batch_size=self.batch_size_lags,
+                    lag_mode=self.lag_search_mode)
+            corr_parts.append(corr5)
+        return np.stack(corr_parts, axis=-1)
+
+    def _run_solar_surface_search(self):
+        """Native equivalent of the reference's sunpy reprojection branch
+        (``alignment.py:939-985``): the reference image is reprojected once
+        per ``lag_solar_r`` onto the small image's own WCS assuming solar-
+        surface corotation (``engine.carrington.reproject_solar_surface``);
+        the per-lag reprojection (shifted small WCS onto the original small
+        WCS at equal obstime) is then plain WCS resampling, i.e. the
+        projected-frame engine, so every helioprojective path applies."""
+        from ..utils.obs import logger, timed
+
+        small_params = wcs_params_from_header(self.hdr_small)
+        kind = small_params.kind
+        h, w = self.data_small.shape
+        lon, lat = lag_search.compute_world_grid(
+            small_params.as_dict(), h, w, kind, False, device=self.device,
+            compute_dtype=self.compute_dtype)
+        base = {**small_params.as_dict(), "crota": get_crota(self.hdr_small)}
+
+        l1, l2, l3, l4, l5 = self._lags_deg(wrap=True)
+        n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)
+        allow_fast = self._allow_fast_mode(n_lags)
+        logger.info("solar-surface (sunpy-equivalent) search: %d candidates, "
+                    "mode=%s", n_lags * len(self.lag_solar_r),
+                    self.lag_search_mode)
+
+        small = self._to_device(self.data_small)
+        corr_parts = []
+        for d_solar_r in self.lag_solar_r:
+            with timed("solar-surface reprojection (reference -> small WCS)"):
+                ref_img = carr_engine.reproject_solar_surface(
+                    self.data_large, self.hdr_large, self.hdr_small,
+                    d_solar_r=float(d_solar_r), order=self.order,
+                    device=self.device, compute_dtype=self.compute_dtype)
+            with timed(f"lag-grid search ({n_lags} candidates)"), \
+                    self._progress_scope():
+                corr5 = lag_search.evaluate_lag_grid(
+                    small, ref_img, lon, lat, base, l1, l2, l3, l4, l5,
+                    order=self.order, method=self.method, kind=kind,
+                    device=self.device, compute_dtype=self.compute_dtype,
+                    batch_size=self.batch_size_lags, allow_fast=allow_fast)
+            corr_parts.append(corr5)
+        return np.stack(corr_parts, axis=-1)
 
     def _prepare_projected_operands(self, wrap: bool):
         """Comparison-grid world coordinates + reference submap + base WCS

@@ -1,5 +1,5 @@
-"""Tests that need a CUDA card: the K1 kernel against its plain version and
-the engine paths on the card against the CPU.  They skip without a card.
+"""Tests that need a CUDA card: the K1 and K2 kernels against their plain
+versions and the engine paths on the card against the CPU.  They skip without a card.
 This file imports no JAX (the machine with the card has none), so it also
 runs there without the repo's conftest:
 
@@ -119,3 +119,91 @@ def test_fast_path_on_card_matches_cpu(cuda):
                                         [0.0], [0.0], [0.0], device="cpu",
                                         **kw)
     np.testing.assert_allclose(got, want, atol=1e-10)
+
+
+def quad_case(n=200, seed=3):
+    """Smooth positive scene with NaN holes, a shifted reference, and lags
+    with shifts, affine and quadratic terms."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    warped = 60.0 + np.sin(xx / 9.0) * np.cos(yy / 13.0) \
+        + 0.1 * rng.standard_normal((n, n))
+    ref = np.roll(warped, (3, -5), axis=(0, 1)) \
+        + 0.05 * rng.standard_normal((n, n))
+    warped[40:55, 20:60] = np.nan
+    ref[100:120, 150:190] = np.nan
+    coeffs = np.zeros((5, 6, 2))
+    coeffs[0, 2] = (37.3, -41.4)
+    coeffs[1, 2] = (-5.0, 3.0)
+    coeffs[2, 2] = (5.3, -2.1)
+    coeffs[2, 0, 0] = 4e-3
+    coeffs[2, 4, 1] = -4e-6
+    coeffs[3, 0, 0] = 0.1           # beyond the TPU kernel's residual bound
+    coeffs[4, 5] = (2e-6, -1.5e-6)
+    return warped, ref, coeffs
+
+
+@pytest.mark.parametrize("method", ["correlation", "residus_masked"])
+def test_k2_matches_plain_version(cuda, method):
+    """K2 vs its plain version on the same card tensors, orders 0/1/2: sums
+    within 1e-5 of each sum's largest magnitude, score within 1e-5, argmax
+    equal."""
+    from euispice_coreg_tpu_torch.engine import quad_score
+
+    warped, ref, coeffs = quad_case()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    canvas, ref_c = quad_score.quad_canvases(t(warped), t(ref), method=method)
+    table = t(quad_score.coeff_table(coeffs))
+    finish = (warp_score.pearson_from_sums if method == "correlation"
+              else quad_score.residus_from_sums)
+    for order in (0, 1, 2):
+        kw = dict(pad=quad_score.PAD, order=order, method=method)
+        before = quad_score.LAUNCHES
+        got = quad_score.quad_score_sums(canvas, ref_c, table, **kw)
+        assert quad_score.LAUNCHES == before + 1
+        want = quad_score.quad_score_sums_reference(canvas, ref_c, table, **kw)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert np.all(np.abs(got - want) <= 1e-5 * np.abs(want).max(axis=0))
+        np.testing.assert_allclose(finish(got), finish(want), atol=1e-5)
+        assert np.nanargmax(finish(got)) == np.nanargmax(finish(want))
+
+
+def test_carrington_engine_on_card_matches_cpu(cuda):
+    """The Carrington engine on the card (``"pallas"``: the K2 select path;
+    ``"exact"``: the gather) against the CPU (K2's plain version, the
+    gather), float64: atol 1e-9."""
+    from euispice_coreg_tpu_torch.core.header import Header
+    from euispice_coreg_tpu_torch.engine import carrington, quad_score
+
+    hdr = Header({
+        "NAXIS1": 96, "NAXIS2": 96, "CRVAL1": 150.0, "CRVAL2": 100.0,
+        "CRPIX1": 48.5, "CRPIX2": 48.5, "CDELT1": 8.0, "CDELT2": 8.0,
+        "CUNIT1": "arcsec", "CUNIT2": "arcsec", "CROTA": 0.3,
+        "DSUN_OBS": 0.5 * 1.496e11, "CRLN_OBS": 120.0, "CRLT_OBS": 3.0,
+        "DATE-OBS": "2022-03-17T09:50:45"})
+    sc = carrington.header_spherical_scalars(hdr, 1.004)
+    px, py = np.meshgrid(np.arange(96.0), np.arange(96.0))
+    lon, lat = carrington.spherical_unproject(px, py, sc)
+    small = np.where(np.isfinite(lon),
+                     100.0 + np.sin(np.nan_to_num(lon) * 2.0)
+                     * np.cos(np.nan_to_num(lat) * 3.0), np.nan)
+    lonlims, latlims, shape = (115.0, 125.0), (-2.0, 8.0), (112, 112)
+    glon, glat = carrington.carrington_grid(lonlims, latlims, shape)
+    ref = 100.0 + np.sin((glon + 0.01) * 2.0) * np.cos(glat * 3.0)
+    axes = (np.arange(0.0, 31.0, 10.0) / 3600.0,
+            np.arange(-20.0, 1.0, 10.0) / 3600.0, [0.0], [0.0], [0.0, 0.2])
+    for mode in ("pallas", "exact"):
+        kw = dict(d_solar_r=1.004, reference_date="2022-03-17T09:50:45",
+                  rate_wave="171", compute_dtype="float64", lag_mode=mode)
+        before = quad_score.LAUNCHES
+        got = carrington.evaluate_lag_grid_carrington(
+            small, ref, hdr, lonlims, latlims, shape, *axes, device=cuda,
+            **kw)
+        assert (quad_score.LAUNCHES > before) == (mode == "pallas")
+        want = carrington.evaluate_lag_grid_carrington(
+            small, ref, hdr, lonlims, latlims, shape, *axes, device="cpu",
+            **kw)
+        np.testing.assert_allclose(got, want, atol=1e-9)

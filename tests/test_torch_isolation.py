@@ -73,8 +73,8 @@ def test_cuda_kernel_call_without_card_raises():
 
 
 def test_not_ported_parts_raise(tmp_path):
-    """Tile-compressed FITS HDUs, figures, the Carrington-grid entry point
-    and multi-device meshes raise NotImplementedError naming the ROADMAP."""
+    """Tile-compressed FITS HDUs, figures and the Carrington tile-FFT
+    evaluator raise NotImplementedError naming the ROADMAP."""
     from euispice_coreg_tpu_torch import Alignment, AlignmentResults
     from euispice_coreg_tpu_torch.io import fits
 
@@ -98,5 +98,13 @@ def test_not_ported_parts_raise(tmp_path):
         res.plot_correlation()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Alignment("a", "b", path_save_figure=str(tmp_path), device="cpu")
+    from euispice_coreg_tpu_torch.engine import carrington
+
+    hdr = {"CRVAL1": 0.0, "CRVAL2": 0.0, "CDELT1": 2.0, "CDELT2": 2.0,
+           "CRPIX1": 8.0, "CRPIX2": 8.0, "CROTA": 0.0, "DSUN_OBS": 7.5e10,
+           "CRLN_OBS": 120.0, "CRLT_OBS": 0.0}
+    img = np.ones((16, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Alignment("a", "b", device="cpu").align_using_carrington()
+        carrington.evaluate_lag_grid_carrington(
+            img, img, hdr, (119.0, 121.0), (-1.0, 1.0), (16, 16), [0.0],
+            [0.0], [0.0], [0.0], [0.0], device="cpu", lag_mode="tile_fft")
