@@ -43,7 +43,26 @@ Phases (each prints its own lines; any failure exits nonzero):
                the engine level (121x121 at 2", +24" injected, "auto"): K2,
                +24" within 3".  Then the "sunpy" branch (121x121 0.5",
                "auto"): +8" within 1".
-7. summary  -- the kernels line (JSON, K1 and K2), then
+7. slice D  -- public API, "auto", 21x21 CRVAL (1") x 3 CDELT1 x 3 CDELT2
+               (0.5 % of the pixel) x 3 CROTA = 11907 candidates on A's
+               pair: must take the block path (27 combos) and recover +8"
+               within 1.5"; the same grid under "pallas" (K1) must give
+               the same CRVAL argmax on the central plane; 5 x 5 x 3 = 75
+               combos must take the block path and recover the same.
+8. slice E  -- align_movie_to_reference on 6 frames of A's scene (pointing
+               errors within +-4", default 21x21 lags at 0.5"): every
+               frame within 1"; jitter_correction_imagers
+               (helioprojective, default 100x100 lags at 0.1", sublists of
+               4 + 1) on the same frames: every corrected CRVAL within 1"
+               of the anchor's; one Carrington jitter run (3 frames of C's
+               scene, 1024^2 grid, 41x41 lags at 0.5", the default
+               "carrington" mode), printing which engine path ran.
+9. slice F  -- AlignmentPixels: a 3072^2 FSI-like frame at 4.44" and a
+               1024^2 crop offset by (+7, -5) px, dx/dy in [-16, 16], drot
+               in {-1, 0, +1} deg: argmax (7, -5, 0), r = 1 within 1e-6,
+               pearson_integer_shifts against a direct float64 window
+               Pearson at 3 offsets within 1e-6.
+10. summary -- the kernels line (JSON, K1 and K2), then
                {"ok": true, "device": ...} as the last line.
 """
 from __future__ import annotations
@@ -669,6 +688,7 @@ CARR_DATE = "2022-03-17T09:50:45"
 CARR_GRID = dict(lonlims=(117.0, 123.0), latlims=(-1.0, 7.0), shape=(N, N))
 CARR_LAGS = 121      # CRVAL lags per axis (bench.py GRID)
 CARR_STEP = 0.5      # arcsec, slice C and the sunpy branch
+CARR_N = 1024        # Carrington grid of slice E's jitter run
 COARSE_STEP = 2.0    # arcsec, the coarse run
 
 
@@ -893,6 +913,332 @@ def phase_sunpy(p_large, p_small):
     log_stages("sunpy", run)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: slice D, the block path for mixed grids ("auto")
+# ---------------------------------------------------------------------------
+
+MIXED_LAGS = 21      # CRVAL lags per axis at 1" (bench.py run_mixed_grid)
+
+
+def mixed_lags(n_cdelt):
+    """21x21 CRVAL at 1" x n_cdelt CDELT1 x n_cdelt CDELT2 (steps of 0.5 %
+    of the pixel, arcsec) x 3 CROTA (bench.py:243)."""
+    import numpy as np
+
+    lag = (np.arange(MIXED_LAGS) - MIXED_LAGS // 2) * 1.0
+    frac = (np.arange(n_cdelt) - n_cdelt // 2) * 0.005 * CDELT_ARCSEC
+    return dict(lag_crval1=lag, lag_crval2=lag, lag_cdelt1=frac,
+                lag_cdelt2=frac, lag_crota=[-0.05, 0.0, 0.05])
+
+
+def central_argmax(corr):
+    """CRVAL argmax of the (cdelt = 0, crota = 0) plane."""
+    import numpy as np
+
+    c3, c4, c5 = (n // 2 for n in corr.shape[2:5])
+    plane = corr[:, :, c3, c4, c5, 0]
+    return np.unravel_index(np.nanargmax(plane), plane.shape)
+
+
+def phase_slice_d(p_large, p_small, engine_log):
+    """auto on 11907 candidates (27 combos on the block path), the same grid
+    under "pallas" (K1), and 75 combos on the block path."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch import Alignment
+    from euispice_coreg_tpu_torch.engine import warp_score
+
+    def run(n_cdelt, mode, return_type="AlignmentResults"):
+        lags = mixed_lags(n_cdelt)
+        A = Alignment(p_large, p_small, small_fov_window=0,
+                      large_fov_window=0, lag_search_mode=mode,
+                      device=DEVICE, **lags)
+        out = A.align_using_helioprojective(return_type=return_type)
+        torch.cuda.synchronize()
+        return lags["lag_crval1"], out
+
+    def check(label, lag, res, want_lines):
+        missing = [m for m in want_lines
+                   if not any(line.startswith(m) for line in engine_log.lines)]
+        if missing:
+            raise AssertionError(f"{label}: no log line {missing}: "
+                                 f"{engine_log.lines}")
+        mi = central_argmax(res.corr)
+        if abs(lag[mi[0]] - TRUE_SHIFT) >= 1.5 \
+                or abs(res.shift_arcsec[0] - TRUE_SHIFT) >= 1.5:
+            raise AssertionError(f"{label} missed +8\": central argmax "
+                                 f"{lag[mi[0]]}, fit {res.shift_arcsec}")
+        return mi
+
+    block_lines = ("engine path: FFT block fast (mixed grid)",)
+    engine_log.lines.clear()
+    t0 = time.perf_counter()
+    lag, res = run(3, "auto")
+    t_first = time.perf_counter() - t0
+    n_cand = res.corr[..., 0].size
+    mi = check("slice D", lag, res, block_lines)
+    t0 = time.perf_counter()
+    run(3, "auto", "corr")
+    t_warm = time.perf_counter() - t0
+    log(f"[slice D] {N}^2, {n_cand} candidates (27 combos), auto: block "
+        f"path, central argmax {lag[mi[0]]:+.1f}\" / "
+        f"{lag[mi[1]]:+.1f}\", fit {res.shift_arcsec[0]:+.3f}\" / "
+        f"{res.shift_arcsec[1]:+.3f}\"; API call first {t_first:.3f} s, "
+        f"warm {t_warm:.3f} s")
+    log_stages("slice D", lambda: run(3, "auto", "corr"))
+
+    warp_score.LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, res_k1 = run(3, "pallas")
+    t_k1 = time.perf_counter() - t0
+    if warp_score.LAUNCHES <= 0:
+        raise AssertionError("slice D pallas did not launch K1")
+    mi_k1 = central_argmax(res_k1.corr)
+    arg5 = np.unravel_index(np.nanargmax(res.corr[..., 0]),
+                            res.corr.shape[:5])
+    arg5_k1 = np.unravel_index(np.nanargmax(res_k1.corr[..., 0]),
+                               res.corr.shape[:5])
+    dcorr = float(np.nanmax(np.abs(res.corr - res_k1.corr)))
+    log(f"[slice D] same grid, pallas (K1, {warp_score.LAUNCHES} launch(es)):"
+        f" central argmax {lag[mi_k1[0]]:+.1f}\" / {lag[mi_k1[1]]:+.1f}\"; "
+        f"5-D argmax block {tuple(int(i) for i in arg5)}, K1 "
+        f"{tuple(int(i) for i in arg5_k1)}; max |dcorr| block vs K1 "
+        f"{dcorr:.3e}; API call {t_k1:.3f} s")
+    if tuple(mi_k1) != tuple(mi):
+        raise AssertionError(f"slice D: block central argmax {mi} != K1 "
+                             f"{mi_k1}")
+
+    engine_log.lines.clear()
+    t0 = time.perf_counter()
+    lag, res75 = run(5, "auto")
+    t_75 = time.perf_counter() - t0
+    mi = check("slice D 75 combos", lag, res75, block_lines)
+    log(f"[slice D] {N}^2, {res75.corr[..., 0].size} candidates (75 combos):"
+        f" block path, central argmax {lag[mi[0]]:+.1f}\" / "
+        f"{lag[mi[1]]:+.1f}\", fit {res75.shift_arcsec[0]:+.3f}\"; API call "
+        f"{t_75:.3f} s ({t_75 / 75 * 1e3:.1f} ms a combo, against "
+        f"{t_warm / 27 * 1e3:.1f} at 27 combos)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: slice E, movies (align_movie_to_reference, jitter correction)
+# ---------------------------------------------------------------------------
+
+# per-frame pointing errors (arcsec), within +-4"; frame 0's is small so
+# that every jitter offset relative to it stays inside the default lags
+JITTER = [(0.4, -0.3), (-2.6, 1.9), (3.4, 2.2), (-1.1, -3.3), (0.6, 3.7),
+          (-3.5, -1.5)]
+
+
+def write_movie(tmp_dir, data, hdr, jitter, stem):
+    """Frames sharing ``data`` (rendered through the header's true
+    pointing), headers mispointed by ``jitter``; DATE-AVG on each."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.io import fits
+
+    paths = []
+    for k, (jx, jy) in enumerate(jitter):
+        h = hdr.copy()
+        h["CRVAL1"] = hdr["CRVAL1"] - jx
+        h["CRVAL2"] = hdr["CRVAL2"] - jy
+        h["DATE-AVG"] = CARR_DATE
+        path = os.path.join(tmp_dir, f"{stem}_{k}.fits")
+        fits.write(path, [fits.PrimaryHDU(data=data.astype(np.float32),
+                                          header=h)])
+        paths.append(path)
+    return paths
+
+
+def read_crval(path):
+    from euispice_coreg_tpu_torch.io import fits
+
+    h = fits.open(path)[0].header
+    return h["CRVAL1"], h["CRVAL2"]
+
+
+def phase_slice_e(p_small, c_small, tmp_dir, engine_log):
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score
+    from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.jitter_correction import (
+        align_movie_to_reference, jitter_correction_imagers)
+
+    hdu = fits.open(p_small)[0]
+    data = np.asarray(hdu.data)
+    hdr = hdu.header.copy()
+    hdr["CRVAL1"] += TRUE_SHIFT  # the true pointing of the rendered scene
+    p_ref = os.path.join(tmp_dir, "movie_ref.fits")
+    fits.write(p_ref, [fits.PrimaryHDU(data=data, header=hdr)])
+    paths = write_movie(tmp_dir, data, hdr, JITTER, "movie")
+
+    out = os.path.join(tmp_dir, "movie_out")
+    os.makedirs(out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = align_movie_to_reference(paths, p_ref, path_files_output=out,
+                                   window_files_input=0, reference_window=0,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    t_movie = (time.perf_counter() - t0) / len(paths)
+    errs = []
+    for k, (jx, jy) in enumerate(JITTER):
+        got = np.array(res[k].shift_arcsec[:2])
+        crval = np.array(read_crval(os.path.join(out, f"movie_{k}.fits")))
+        errs.append(max(np.max(np.abs(got - (jx, jy))),
+                        np.max(np.abs(crval - (hdr["CRVAL1"], hdr["CRVAL2"])))))
+    log(f"[slice E] align_movie_to_reference, {len(paths)} frames of {N}^2, "
+        f"21x21 lags at 0.5\": worst |fit - jitter| or |corrected - true| "
+        f"{max(errs):.3f}\" (tol 1\"), {t_movie * 1e3:.1f} ms per frame "
+        f"(warm: slice A compiled nothing new)")
+    if not max(errs) < 1.0:
+        raise AssertionError(f"slice E movie missed a frame: {errs}")
+
+    out = os.path.join(tmp_dir, "jitter_out")
+    os.makedirs(out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jitter_correction_imagers(paths, out, window_files_input=0,
+                              sublist_length=4, overlap=1,
+                              alignement_method="helioprojective",
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    t_jit = (time.perf_counter() - t0) / (len(paths) - 1)
+    anchor = np.array(read_crval(paths[0]))
+    crvals = np.array([read_crval(os.path.join(out, f"movie_{k}.fits"))
+                       for k in range(len(paths))])
+    err = float(np.max(np.abs(crvals - anchor)))
+    log(f"[slice E] jitter_correction_imagers helioprojective, "
+        f"{len(paths)} frames, 100x100 lags at 0.1\", sublists of 4 + 1: "
+        f"corrected CRVAL1 " + ", ".join(f"{c:.3f}" for c in crvals[:, 0])
+        + f"\" (anchor {anchor[0]:.3f}\"), worst |corrected - anchor| "
+        f"{err:.3f}\" (tol 1\"), {t_jit * 1e3:.1f} ms per aligned frame")
+    if not err < 1.0:
+        raise AssertionError(f"slice E jitter correction off by {err}")
+
+    # Carrington mode (the default) on slice C's scene, 1024^2 grid
+    hdu = fits.open(c_small)[0]
+    c_hdr = hdu.header.copy()
+    c_hdr["CRVAL1"] += TRUE_SHIFT
+    c_paths = write_movie(tmp_dir, np.asarray(hdu.data), c_hdr, JITTER[:3],
+                          "carr_movie")
+    out = os.path.join(tmp_dir, "carr_jitter_out")
+    os.makedirs(out)
+    lag = (np.arange(41) - 20) * 0.5
+    engine_log.lines.clear()
+    quad_score.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jitter_correction_imagers(
+        c_paths, out, lonlims=CARR_GRID["lonlims"],
+        latlims=CARR_GRID["latlims"], shape=(CARR_N, CARR_N),
+        lag_crval1=lag, lag_crval2=lag, window_files_input=0,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    t_carr = (time.perf_counter() - t0) / (len(c_paths) - 1)
+    paths_run = [m for m in ("engine path: carrington FFT fast",
+                             "engine path: carrington linearized select")
+                 if m in engine_log.lines]
+    k2_launches = quad_score.LAUNCHES
+    anchor = np.array(read_crval(c_paths[0]))
+    crvals = np.array([read_crval(os.path.join(out, f"carr_movie_{k}.fits"))
+                       for k in range(len(c_paths))])
+    err = float(np.max(np.abs(crvals - anchor)))
+    log(f"[slice E] jitter_correction_imagers carrington, 3 frames on a "
+        f"{CARR_N}^2 Carrington grid, 41x41 lags at 0.5\": engine "
+        f"{paths_run}, K2 {k2_launches} launch(es), worst |corrected - "
+        f"anchor| {err:.3f}\" (tol 1\"), {t_carr * 1e3:.1f} ms per aligned "
+        f"frame")
+    k2_ran = paths_run == ["engine path: carrington linearized select"]
+    if len(paths_run) != 1 or not err < 1.0 or k2_ran != (k2_launches > 0):
+        raise AssertionError(f"slice E Carrington jitter: {paths_run}, K2 "
+                             f"{k2_launches} launch(es), {err}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: slice F, pxlshift (AlignmentPixels)
+# ---------------------------------------------------------------------------
+
+FSI_N = 3072         # FSI-like large frame, 4.44" pixels
+FSI_CROP = 1024      # the small image: a crop of it
+FSI_SHIFT = (7, -5)  # (dx, dy) px of the crop
+
+
+def fsi_scene(n, seed=3):
+    """Smoothed white noise (Gaussian filter of 6 px through an FFT on the
+    card) plus a constant: texture at every scale a crop can hold."""
+    import numpy as np
+    import torch
+
+    noise = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (n, n)), device=DEVICE)
+    f = torch.fft.fftfreq(n, device=DEVICE, dtype=torch.float64)
+    g = torch.exp(-2.0 * (np.pi * 6.0) ** 2 * (f[:, None] ** 2 + f ** 2))
+    smooth = torch.fft.ifft2(torch.fft.fft2(noise) * g).real
+    return (100.0 + 20.0 * smooth / smooth.std()).float().cpu().numpy()
+
+
+def phase_slice_f(tmp_dir):
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.core.header import Header
+    from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.pxlshift import AlignmentPixels
+
+    large = fsi_scene(FSI_N)
+    corner = int((FSI_N - FSI_CROP - 1) / 2)
+    dx, dy = FSI_SHIFT
+    small = large[corner + dy:corner + dy + FSI_CROP,
+                  corner + dx:corner + dx + FSI_CROP]
+    paths = []
+    for name, img in (("fsi", large), ("crop", small)):
+        n = img.shape[0]
+        hdr = Header({"NAXIS1": n, "NAXIS2": n, "CRVAL1": 0.0,
+                      "CRVAL2": 0.0, "CRPIX1": (n + 1) / 2,
+                      "CRPIX2": (n + 1) / 2, "CDELT1": 4.44, "CDELT2": 4.44,
+                      "CUNIT1": "arcsec", "CUNIT2": "arcsec",
+                      "CTYPE1": "HPLN-TAN", "CTYPE2": "HPLT-TAN"})
+        paths.append(os.path.join(tmp_dir, f"{name}.fits"))
+        fits.write(paths[-1], [fits.PrimaryHDU(data=img, header=hdr)])
+
+    lag_d = np.arange(-16, 17)
+    drot = [-1.0, 0.0, 1.0]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = AlignmentPixels(paths[0], 0, paths[1], 0, device=DEVICE)
+        corr = A.find_best_parameters(lag_d, lag_d, drot)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    mi = np.unravel_index(np.nanargmax(corr), corr.shape)
+    best = (int(lag_d[mi[0]]), int(lag_d[mi[1]]), drot[mi[2]])
+    r_true = float(corr[mi])
+    # pearson_integer_shifts against a direct float64 sliding window
+    slc = A.slc_small_ref
+    errs = []
+    for i, j in ((mi[0], mi[1]), (0, 0), (30, 4)):
+        win = A.data_large[slc[0].start + lag_d[j]:slc[0].stop + lag_d[j],
+                           slc[1].start + lag_d[i]:slc[1].stop + lag_d[i]]
+        ca = A.data_small - A.data_small.mean()
+        cb = win - win.mean()
+        direct = np.sum(ca * cb) / np.sqrt(np.sum(ca ** 2) * np.sum(cb ** 2))
+        errs.append(abs(float(corr[i, j, 1]) - direct))
+    log(f"[slice F] AlignmentPixels {FSI_N}^2 at 4.44\" vs a {FSI_CROP}^2 "
+        f"crop at {FSI_SHIFT}, 33x33 shifts x 3 rotations: argmax {best}, "
+        f"r {r_true:.9f}, pearson_integer_shifts vs direct float64 at 3 "
+        f"offsets {max(errs):.2e} (tol 1e-6); find_best_parameters (FITS "
+        f"load included) {times[0]:.3f} s first, {times[1]:.3f} s second")
+    if best != (dx, dy, 0.0) or abs(r_true - 1.0) > 1e-6 \
+            or not max(errs) <= 1e-6:
+        raise AssertionError(f"slice F: argmax {best}, r {r_true}, "
+                             f"direct {errs}")
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, REPO)
@@ -933,6 +1279,12 @@ def main():
         phase_slice_c_auto(c_large, c_small, engine_log)
         phase_coarse(engine_log)
         phase_sunpy(c_large, c_small)
+
+        # slices D-F: the block path, movies, pxlshift (each phase sets the
+        # count of the kernel it drives to 0 just before that run)
+        phase_slice_d(p_large, p_small, engine_log)
+        phase_slice_e(p_small, c_small, tmp_dir, engine_log)
+        phase_slice_f(tmp_dir)
 
     k_ms, p_ms = times[N]
     k2_ms, k2_plain_ms, k2_big_ms = k2_times

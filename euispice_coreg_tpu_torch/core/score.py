@@ -35,6 +35,45 @@ def masked_pearson(a, b):
     return num / den
 
 
+def c_correlate3d(s_1, s_2, lags):
+    """IDL ``c_correlate.pro`` over the trailing axis at integer lags.
+
+    Inputs of shape (..., N) (tensors, or arrays made tensors); returns
+    (..., len(lags)) on their device.  Each signal is mean-centred once and
+    the sliding dot product is normalised by ``sqrt(sum(s1c^2) *
+    sum(s2c^2))`` (reference ``c_correlate.py:9-72``).
+    """
+    s_1 = torch.as_tensor(s_1)
+    s_2 = torch.as_tensor(s_2)
+    n_s = s_1.shape[-1]
+    c1 = s_1 - s_1.mean(-1, keepdim=True)
+    c2 = s_2 - s_2.mean(-1, keepdim=True)
+    den = torch.sqrt((c1 * c1).sum(-1) * (c2 * c2).sum(-1))
+    out = []
+    for lag in list(lags):
+        lag = int(lag)
+        if lag >= 0:
+            v = (c1[..., :n_s - lag] * c2[..., lag:]).sum(-1)
+        else:
+            v = (c1[..., -lag:] * c2[..., :n_s + lag]).sum(-1)
+        out.append(v / den)
+    return torch.stack(out, dim=-1)
+
+
+def c_correlate(s_1, s_2, lags):
+    """:func:`c_correlate3d` for 1-D signals: returns (len(lags),).  The
+    header engine's lags=[0] reduces to Pearson r."""
+    s_1 = torch.as_tensor(s_1)
+    if s_1.ndim != 1:
+        raise ValueError(f"c_correlate takes 1-D signals, got shape "
+                         f"{tuple(s_1.shape)}; use c_correlate3d")
+    return c_correlate3d(s_1, s_2, lags)
+
+
+# reference spelling (hdrshift/c_correlate.py:9: ``c_correlate3D``)
+c_correlate3D = c_correlate3d
+
+
 def residus(a, b):
     """std((a - b)/sqrt(a)) over all elements, NaNs propagating (reference
     'residus', ``alignment.py:544-548``; population std like ``jnp.std``)."""

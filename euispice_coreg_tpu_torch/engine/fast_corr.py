@@ -41,7 +41,8 @@ import torch
 
 from ..core import wcs
 from ..utils import obs
-from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
+from ..utils.torchcfg import (check_single_device_mesh, resolve_device,
+                               resolve_dtype, to_tensor)
 from . import lag_search
 
 MAX_DISPLACEMENT_SPREAD_PX = 0.05  # fall back if curvature exceeds this
@@ -54,24 +55,51 @@ def _fft_size(n: int) -> int:
 
 
 def displacement_per_lag(base: dict, lags_deg: np.ndarray, lon, lat,
-                         kind: str):
-    """Per-lag pixel displacement c_l = W2P_{base+d}(w) - p at the probe
-    points, host float64.
+                         kind: str, grid: dict | None = None):
+    """Per-lag pixel displacement c_l at the probe points, host float64.
+
+    ``base`` is the WCS the crval lags perturb.  With ``grid`` (the
+    comparison grid's own WCS) the displacements are conjugated into
+    grid-pixel space, the sampling offsets into an image already warped
+    through ``base`` (block path): c = W2P_grid(P2W_base(W2P_{base+d}(w))) - p.
+    With ``grid=None`` (base == grid WCS) this is c = W2P_{base+d}(w) - p.
 
     Returns (c, spread): c (L, 2) at the grid center; spread = max over probe
     points and lags of |c(probe) - c(center)| (constancy check).
     """
+    cs, spreads = displacement_per_lag_multi([base], lags_deg, lon, lat, kind,
+                                             grid=grid)
+    return cs[0], float(spreads[0])
+
+
+def displacement_per_lag_multi(combos_params, lags_deg, lon, lat, kind: str,
+                               grid: dict | None = None):
+    """:func:`displacement_per_lag` for C WCS param dicts sharing one lag
+    set, as one vectorised host float64 chain on (C, L, probes) arrays.
+    Returns ``(cs, spreads)`` with ``cs`` (C, L, 2) and ``spreads`` (C,)."""
     pl, pb, px0, py0 = lag_search.probe_values(lon, lat)
     lags_deg = np.asarray(lags_deg, dtype=np.float64)
-    # batch all lags at once: WCS params broadcast as (L, 1) against (probes,)
-    p = {k: np.float64(v) for k, v in base.items()}
-    p["crval1"] = (base["crval1"] + lags_deg[:, 0])[:, None]
-    p["crval2"] = (base["crval2"] + lags_deg[:, 1])[:, None]
-    bx, by = wcs.world_to_pixel(p, pl[None, :], pb[None, :], kind=kind, xp=np)
-    cs = np.stack([bx - px0[None, :], by - py0[None, :]], axis=-1)  # (L, 5, 2)
-    center = cs[:, 0, :]
-    spread = np.max(np.abs(cs - center[:, None, :])) if cs.size else 0.0
-    return center, float(spread)
+    keys = set().union(*[set(p) for p in combos_params])
+    p_base = {k: np.array([np.float64(cp[k]) for cp in combos_params])[
+        :, None, None] for k in keys}
+    p = dict(p_base)
+    p["crval1"] = p_base["crval1"] + lags_deg[None, :, 0, None]
+    p["crval2"] = p_base["crval2"] + lags_deg[None, :, 1, None]
+    bx, by = wcs.world_to_pixel(p, pl[None, None, :], pb[None, None, :],
+                                kind=kind, xp=np)
+    if grid is not None:
+        # back to world through the unlagged combo WCS, then into grid pixels
+        grid64 = {k: np.float64(v) for k, v in grid.items()}
+        lon2, lat2 = wcs.pixel_to_world(p_base, bx, by, kind=kind, xp=np)
+        bx, by = wcs.world_to_pixel(grid64, lon2, lat2, kind=kind, xp=np)
+    cs = np.stack([bx - px0[None, None, :], by - py0[None, None, :]],
+                  axis=-1)                                   # (C, L, 5, 2)
+    center = cs[:, :, 0, :]
+    if cs.size:
+        spreads = np.max(np.abs(cs - center[:, :, None, :]), axis=(1, 2, 3))
+    else:
+        spreads = np.zeros(len(combos_params))
+    return center, spreads
 
 
 def fast_path_applicable(l3, l4, l5, order: int) -> bool:
@@ -358,3 +386,73 @@ def _combine_scores(S, dfrac, order: int, score: str):
     T = np.stack([S[..., 0, :], S[..., 1, :], S[..., 2, :], C1, C2, C3],
                  axis=-2)
     return _scores_from_sums(T, score)
+
+
+def pearson_integer_shifts(fixed_img, moving_img, dxs, dys, *, device):
+    """Masked Pearson r between ``fixed`` and ``moving`` shifted by every
+    integer offset (dx, dy): r[i, j] = pearson(fixed(p), moving(p + (dx_i, dy_j))).
+
+    The pxlshift sliding-window correlation for the whole offset grid from
+    order-0 FFT correlation surfaces (layout ``[n, Sa, Saa, Sb, Sab, Sbb]``),
+    from the images in float64.  Both images must share a shape; NaNs define
+    the masks.  Returns (len(dxs), len(dys)) float64.
+    """
+    dxs = np.asarray(dxs, dtype=np.int64)
+    dys = np.asarray(dys, dtype=np.int64)
+    h, w = np.shape(fixed_img)
+    m = _fft_size(max(h, w)
+                  + int(max(np.max(np.abs(dxs)), np.max(np.abs(dys)))) + 2)
+    dev = resolve_device(device)
+    gx, gy = np.meshgrid(dxs, dys, indexing="ij")
+    iy = torch.as_tensor(np.mod(gy.ravel(), m), device=dev)
+    ix = torch.as_tensor(np.mod(gx.ravel(), m), device=dev)
+    moving = to_tensor(moving_img, device=dev, dtype=torch.float64)
+    fixed = to_tensor(fixed_img, device=dev, dtype=torch.float64)
+    S = _surfaces_at(moving, fixed, iy, ix, 0, m).cpu().numpy()
+    n, Sa, Saa, Sb, Sab, Sbb = S
+    with np.errstate(invalid="ignore", divide="ignore"):
+        num = Sab - Sa * Sb / n
+        den = np.sqrt((Saa - Sa * Sa / n) * (Sbb - Sb * Sb / n))
+        r = num / den
+    return r.reshape(len(dxs), len(dys))
+
+
+def evaluate_movie_from_displacements(smalls, refs, cs, *, order: int = 2,
+                                      device, compute_dtype="float32",
+                                      mesh=None,
+                                      method: str = "correlation"):
+    """Scores for F constant-displacement pair searches evaluated together.
+
+    Args:
+      smalls: (F, h, w) moving images (one per frame), numpy or a tensor
+        (a tensor on ``device`` is used in place, never copied through the
+        host; an ``expand``-ed view is fine).
+      refs:   (F, h, w) comparison canvases, numpy or a tensor.
+      cs:     (F, L, 2) per-frame constant pixel displacements (x/y order).
+      mesh: ``None`` or one device; more raises ``NotImplementedError``.
+
+    Frames run one after another on ``device``, each through
+    :func:`evaluate_from_displacements` (float64 surfaces, full chunked
+    inverse).  Returns the (F, L) float64 score array, or None when a
+    precondition fails for the stack or any frame (method, shapes, shifts
+    of a quarter frame or more).
+    """
+    check_single_device_mesh(mesh)
+    cs = np.asarray(cs, dtype=np.float64)
+    if cs.ndim != 3 or cs.shape[-1] != 2:
+        return None
+    shape = tuple(np.shape(smalls))
+    if shape != tuple(np.shape(refs)) or len(shape) != 3 \
+            or shape[0] != cs.shape[0] or shape[0] == 0:
+        return None
+    out = []
+    for f in range(shape[0]):
+        # one frame at a time: a tensor stack (or an expand-ed view) is
+        # indexed in place, never made contiguous or copied whole
+        r = evaluate_from_displacements(
+            smalls[f], refs[f], cs[f], 0.0, order=order, device=device,
+            compute_dtype=compute_dtype, method=method)
+        if r is None:
+            return None
+        out.append(r)
+    return np.stack(out)

@@ -10,13 +10,16 @@ submap.  :func:`evaluate_lag_grid` picks the path:
   (:mod:`.warp_score`);
 * CRVAL-only grids with ``correlation``/``residus_masked``: the FFT
   surface fast path (:mod:`.fast_corr`);
+* ``allow_fast="block"`` on mixed grids at order 0/2: the block path, one
+  warp per (cdelt1, cdelt2, crota) combo and the CRVAL sub-grid on FFT
+  surfaces (:func:`_evaluate_block_fast`);
 * otherwise the exact per-lag engine: K1 on a CUDA device for correlation
   at order 0-2 (it computes exactly the per-lag gather's numbers), the torch
   per-lag gather in lag chunks for everything else.
 
-The JAX package's block fleet path for large mixed grids is not ported yet
-(ROADMAP.md, "block fleet path"); neither are its TPU workarounds (the
-gather-free select sampler, chunk retries, probe caches, mesh sharding).
+The JAX package's TPU workarounds are not carried over (the gather-free
+select and upsample samplers, chunk retries, probe and plan caches, mesh
+sharding).
 """
 from __future__ import annotations
 
@@ -24,15 +27,12 @@ import numpy as np
 import torch
 
 from ..core import resample, score, wcs
-from ..utils.obs import Progress, logger
+from ..utils.obs import Progress, logger, stage
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import warp_score
 
 # lag vector layout along the last axis of the (L, 5) lag matrix
 D_CRVAL1, D_CRVAL2, D_CDELT1, D_CDELT2, D_CROTA = range(5)
-
-BLOCK_NOT_PORTED = ("block fleet path (allow_fast='block', mixed grids of "
-                    "more than 2000 candidates): not yet ported, see ROADMAP")
 
 
 def apply_lag_to_params(base: dict, d):
@@ -157,7 +157,13 @@ def evaluate_lag_grid(
             logger.info("engine path: FFT fast preconditions failed, "
                         "falling back")
         elif allow_fast == "block" and order in (0, 2):
-            raise NotImplementedError(BLOCK_NOT_PORTED)
+            fast = _evaluate_block_fast(
+                small_img, ref_img, lon, lat, base_params, l1, l2, l3, l4, l5,
+                order=order, kind=kind, device=dev, compute_dtype=dt,
+                method=method)
+            if fast is not None:
+                logger.info("engine path: FFT block fast (mixed grid)")
+                return fast
 
     if (dev.type == "cuda" and method == "correlation"
             and order in (0, 1, 2)):
@@ -181,6 +187,86 @@ def evaluate_lag_grid(
         to_tensor(lat, device=dev, dtype=dt),
         base_params, order, method, kind, batch_size)
     return out.reshape(shape)
+
+
+def _apply_lag_to_params_np(base: dict, d5) -> dict:
+    """Host float64 twin of :func:`apply_lag_to_params` for one lag vector:
+    the PC matrix is rebuilt only when a cdelt or crota lag is nonzero."""
+    crval1 = base["crval1"] + d5[0]
+    crval2 = base["crval2"] + d5[1]
+    cdelt1 = base["cdelt1"] + d5[2]
+    cdelt2 = base["cdelt2"] + d5[3]
+    crota = base["crota"] + d5[4]
+    out = dict(base, crval1=crval1, crval2=crval2,
+               cdelt1=cdelt1, cdelt2=cdelt2, crota=crota)
+    if d5[2] != 0 or d5[3] != 0 or d5[4] != 0:
+        rho = np.deg2rad(crota)
+        lam = cdelt2 / cdelt1
+        out["pc11"] = np.cos(rho)
+        out["pc12"] = -lam * np.sin(rho)
+        out["pc21"] = np.sin(rho) / lam
+        out["pc22"] = np.cos(rho)
+    return out
+
+
+def _warp_by_params(img, lon, lat, params, kind, order):
+    """``img`` warped onto the (lon, lat) grid through the WCS ``params``
+    (host scalars, made tensors of the grid's dtype), on the grid's
+    device."""
+    x, y = wcs.world_to_pixel(params, lon, lat, kind=kind)
+    return resample.sample_image(img, x, y, order=order)
+
+
+def _evaluate_block_fast(small_img, ref_img, lon, lat, base_params,
+                         l1, l2, l3, l4, l5, *, order, kind, device,
+                         compute_dtype, method="correlation"):
+    """Block fast path for mixed lag grids.
+
+    For each (cdelt1, cdelt2, crota) combo the small image is warped once
+    onto the comparison grid through the combo's WCS; the crval1 x crval2
+    sub-grid then factorizes over FFT correlation surfaces as in
+    :mod:`.fast_corr`, with every combo's displacements conjugated into the
+    grid's pixel space in one host chain.  Combos run one after another,
+    one warp resident at a time.
+
+    The spline interpolation is applied twice (pre-warp + per-lag tap
+    stencil) where the exact engine interpolates once: a sub-percent
+    smoothing of the values, argmax unchanged.  Returns the 5-D hypercube,
+    or None when the spread gate (checked before any warp) or a frame-size
+    precondition fails (the caller then runs the exact engine).
+    """
+    from . import fast_corr
+
+    combos = [(i3, i4, i5,
+               _apply_lag_to_params_np(base_params,
+                                       np.array([0.0, 0.0, d3, d4, d5])))
+              for i3, d3 in enumerate(l3)
+              for i4, d4 in enumerate(l4)
+              for i5, d5 in enumerate(l5)]
+    g1, g2 = np.meshgrid(l1, l2, indexing="ij")
+    lags2 = np.stack([g1.ravel(), g2.ravel()], axis=-1)     # (L, 2) deg
+    with stage("fast_hostprep_s"):
+        cs, spreads = fast_corr.displacement_per_lag_multi(
+            [combo for _i3, _i4, _i5, combo in combos], lags2, lon, lat,
+            kind, grid=base_params)
+    if float(np.max(spreads)) > fast_corr.MAX_DISPLACEMENT_SPREAD_PX:
+        return None
+
+    out = np.zeros((len(l1), len(l2), len(l3), len(l4), len(l5)))
+    small_d = to_tensor(small_img, device=device, dtype=compute_dtype)
+    ref_d = to_tensor(ref_img, device=device, dtype=compute_dtype)
+    lon_d = to_tensor(lon, device=device, dtype=compute_dtype)
+    lat_d = to_tensor(lat, device=device, dtype=compute_dtype)
+    for k, (i3, i4, i5, combo) in enumerate(combos):
+        params = {key: v for key, v in combo.items() if key != "crota"}
+        warped = _warp_by_params(small_d, lon_d, lat_d, params, kind, order)
+        vals = fast_corr.evaluate_from_displacements(
+            warped, ref_d, cs[k], spreads[k], order=order, device=device,
+            compute_dtype=compute_dtype, method=method)
+        if vals is None:
+            return None
+        out[:, :, i3, i4, i5] = vals.reshape(len(l1), len(l2))
+    return out
 
 
 def compute_world_grid(small_params: dict, h, w, kind, wrap, *, device,

@@ -43,19 +43,24 @@ class Alignment:
     ``lag_search_mode``:
 
     * "auto" (default): CRVAL-only grids use the FFT fast path; mixed grids
-      of more than 2000 candidates would use the block fleet path (not
-      ported: raises ``NotImplementedError``), smaller ones the exact
-      per-lag engine.  On a Carrington grid: the per-combo FFT path, else
-      the quadratic-conjugation select path on kernel K2, else the per-lag
+      of more than 2000 candidates the block path (one warp per
+      cdelt/crota combo, the CRVAL sub-grid on FFT surfaces; correlation
+      and ``residus_masked``, reprojection order 0 or 2), smaller ones and
+      everything the block path declines the exact per-lag engine.  On a
+      Carrington grid: the per-combo FFT path, else the
+      quadratic-conjugation select path on kernel K2, else the per-lag
       gather;
     * "exact": always the per-lag engine (K1 on a CUDA device for
       correlation at order 0-2);
-    * "fast": the FFT/block fast paths where applicable (on a Carrington
-      grid as "auto");
+    * "fast": the FFT fast path on CRVAL-only grids, the block path on any
+      mixed grid (on a Carrington grid as "auto");
     * "pallas": the fused warp+score kernel K1; on a Carrington grid the
       select path on K2 directly;
     * "tile_fft": on a Carrington grid not ported (raises
       ``NotImplementedError``); elsewhere as "fast".
+
+    Raw ``"residus"`` always takes the exact engine (its NaN propagation
+    does not factorize over FFT surfaces).
     """
 
     def __init__(

@@ -123,15 +123,29 @@ def test_initial_carrington_matches_jax(tmp_path):
     assert res_t.shift_arcsec[0] == pytest.approx(40.0, abs=5.0)
 
 
-def test_block_fleet_path_is_not_ported(tmp_path):
-    """Mixed grids above 2000 candidates would take the JAX block fleet
-    path; the port raises instead of silently running another engine."""
+def test_block_path_matches_jax(tmp_path, caplog):
+    """Mixed grid above 2000 candidates (21x21 CRVAL x 5 CROTA) under
+    "auto": the block path, float64, against the JAX ``Alignment``:
+    hypercube atol 1e-6, argmax equal, fitted shift and corrected header
+    within 1e-4"."""
+    import logging
+
     p_large, p_small = write_pair(tmp_path, "fixture")
-    A = Alignment(p_large, p_small, lag_crval1=np.arange(21.0),
-                  lag_crval2=np.arange(21.0), lag_crota=np.linspace(-1, 1, 5),
-                  small_fov_window=0, large_fov_window=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="block fleet"):
-        A.align_using_helioprojective(return_type="corr")
+    lags = dict(lag_crval1=np.arange(21.0) - 2.0,
+                lag_crval2=np.arange(21.0) - 14.0,
+                lag_crota=np.linspace(-1, 1, 5))
+    with caplog.at_level(logging.INFO, logger="euispice_coreg_tpu_torch"):
+        res_j, res_t, hdr_j, hdr_t = run_both(
+            tmp_path, p_large, p_small, "auto", "float64", **lags)
+    assert "engine path: FFT block fast (mixed grid)" in [
+        r.getMessage() for r in caplog.records]
+    assert res_t.corr.shape == res_j.corr.shape == (21, 21, 1, 1, 5, 1)
+    np.testing.assert_allclose(res_t.corr, res_j.corr, atol=1e-6)
+    assert res_t.max_index == res_j.max_index
+    np.testing.assert_allclose(res_t.shift_arcsec, res_j.shift_arcsec,
+                               atol=1e-4)
+    for k in HEADER_KEYS:
+        assert hdr_t[k] == pytest.approx(hdr_j[k], abs=1e-4), k
 
 
 def test_from_jax_state_round_trip():

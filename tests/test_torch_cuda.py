@@ -207,3 +207,42 @@ def test_carrington_engine_on_card_matches_cpu(cuda):
             small, ref, hdr, lonlims, latlims, shape, *axes, device="cpu",
             **kw)
         np.testing.assert_allclose(got, want, atol=1e-9)
+
+
+def test_block_path_on_card_matches_cpu(cuda):
+    """The block path (warps and float64 surfaces on the card) against the
+    same call on CPU tensors, float64: atol 1e-9."""
+    small, ref, lon, lat, base = make_case("tan", seed=4)
+    c = base["cdelt1"]
+    axes = (np.arange(-3, 4) * c, np.arange(-2, 3) * c, [0.0, 0.005 * c],
+            [0.0], [-0.1, 0.0, 0.1])
+    kw = dict(order=2, compute_dtype="float64", allow_fast="block")
+    got = lag_search.evaluate_lag_grid(small, ref, lon, lat, base, *axes,
+                                       device=cuda, **kw)
+    want = lag_search.evaluate_lag_grid(
+        *(torch.as_tensor(a) for a in (small, ref, lon, lat)), base,
+        *axes, device="cpu", **kw)
+    assert got.shape == (7, 5, 2, 1, 3)
+    np.testing.assert_allclose(got, want, atol=1e-9)
+
+
+def test_movie_evaluator_on_card_matches_per_frame(cuda):
+    """The movie evaluator against per-frame ``evaluate_from_displacements``
+    on the card, orders 0 and 2, both methods: atol 1e-9."""
+    from euispice_coreg_tpu_torch.engine import fast_corr
+
+    rng = np.random.default_rng(5)
+    frames = [make_case("tan", seed=s)[:2] for s in (6, 7, 8)]
+    smalls = torch.as_tensor(np.stack([f[0] for f in frames]), device=cuda)
+    refs = torch.as_tensor(np.stack([f[1] for f in frames]), device=cuda)
+    cs = rng.uniform(-8.0, 8.0, size=(3, 25, 2))
+    for order in (0, 2):
+        for method in ("correlation", "residus_masked"):
+            kw = dict(order=order, device=cuda, compute_dtype="float64",
+                      method=method)
+            got = fast_corr.evaluate_movie_from_displacements(smalls, refs,
+                                                              cs, **kw)
+            for f in range(3):
+                want = fast_corr.evaluate_from_displacements(
+                    smalls[f], refs[f], cs[f], 0.0, **kw)
+                np.testing.assert_allclose(got[f], want, atol=1e-9)

@@ -108,3 +108,14 @@ def test_not_ported_parts_raise(tmp_path):
         carrington.evaluate_lag_grid_carrington(
             img, img, hdr, (119.0, 121.0), (-1.0, 1.0), (16, 16), [0.0],
             [0.0], [0.0], [0.0], [0.0], device="cpu", lag_mode="tile_fft")
+    # a mesh of more than one device (frame-axis sharding, ROADMAP item 12)
+    from euispice_coreg_tpu_torch.engine import fast_corr
+    from euispice_coreg_tpu_torch.utils.torchcfg import \
+        check_single_device_mesh
+
+    for one in (None, ["cpu"]):
+        check_single_device_mesh(one)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        fast_corr.evaluate_movie_from_displacements(
+            img[None], img[None], np.zeros((1, 1, 2)), device="cpu",
+            mesh=[torch.device("cpu")] * 2)
