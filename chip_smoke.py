@@ -14,18 +14,33 @@ Phases (each prints its own lines; any failure exits nonzero):
                and power limit (nvidia-smi), torch and CUDA versions.
 2. build    -- builds K1 (csrc/warp_score.cu) and K2 (csrc/quad_score.cu)
                with nvcc for sm_90a, in parallel, into
-               euispice_coreg_tpu_torch/build/ and prints the seconds.
+               euispice_coreg_tpu_torch/build/ and prints the seconds and
+               each kernel's registers, shared memory and spills (nvcc's
+               -Xptxas -v report, kept by engine/_build.py).
 3. kernels  -- K1 against its plain version on the card: 512^2 and 2048^2,
                TAN and CAR, orders 0/1/2, lags with crota and cdelt parts,
                NaN holes.  Six sums within 1e-5 of each sum's largest
                magnitude over the lags, r within 1e-5, argmax equal.  Then
-               both timed at the slice-B lag grid (21x21x3 = 1323 lags).
+               the plain version timed at the slice-B lag grid (21x21x3 =
+               1323 lags), and K1 at 2048^2 against its bound at 1323 lags
+               and at the slice-D grid (11907 lags).
                K2 likewise: 512^2 and 2048^2, orders 0/1/2, correlation and
                residus_masked, shifts of +-140 px, affine and quadratic
                fields, a within-tile spread beyond the TPU kernel's bound,
                NaN holes; same tolerances (r or residue std within 1e-5).
-               Then K2 and its plain version timed on one 21x21 = 441-lag
-               set at 2048^2, and K2 alone at 121x121 = 14641 lags.
+               Then the plain version timed on one 21x21 = 441-lag set at
+               2048^2, and K2 against its bound at 441 and at 121x121 =
+               14641 lags, and at 14641 lags 20 px apart (shifts up to
+               1200 px, most pixel-lags off the grid).  Each timing against
+               the bound prints ms, pixel-lags/s, the bound (operations or
+               bytes, from the published H100 peaks) and the share, and
+               holds the timed launch against the plain version at every
+               37th lag and its best lag (sums and r within 1e-5, best lag
+               equal).
+               Ragged tiles: K1 (TAN, CAR) and K2 (both methods) on a
+               517x301 grid with NaN holes, at 1, LT + 1, 13 and 441 lags,
+               float32 and float64: the same tolerances, and two launches
+               bit-identical.
 4. slice A  -- public API, lag_search_mode="auto", 121x121 CRVAL grid
                (0.5"): must take the FFT fast path and recover the injected
                +8" within 1"; rerun in float64 and compare.
@@ -62,7 +77,8 @@ Phases (each prints its own lines; any failure exits nonzero):
                in {-1, 0, +1} deg: argmax (7, -5, 0), r = 1 within 1e-6,
                pearson_integer_shifts against a direct float64 window
                Pearson at 3 offsets within 1e-6.
-10. summary -- the kernels line (JSON, K1 and K2), then
+10. summary -- the kernels line (JSON, K1 and K2, with every timing against
+               its bound), then
                {"ok": true, "device": ...} as the last line.
 """
 from __future__ import annotations
@@ -82,9 +98,99 @@ CDELT_ARCSEC = 0.492          # HRIEUV pixel
 TOL = 1e-5                    # kernel vs plain: sums (normalised) and r
 DEVICE = "cuda"
 
+# published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
+# and float64 outside the tensor cores (an FMA counts two operations), HBM3
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+PEAK_BYTES = 3.35e12
+# operations of K1 and K2 at order 2, counted from csrc/*.cu (a division, a
+# sine or a cosine counts one): "pixel", float32 once per pixel whose ref
+# passes the kernel's test (K1 TAN: lon*rad, lat*rad, its sine and cosine);
+# "lag", float32 per such pixel and lag (K2: the field 26, x and y 2, the
+# range test 4; K1 TAN: the projection 17, the inverse CDELT/PC step 14,
+# the range test 4; K1 CAR: 2 + 14 + 4); "sum_f32" and "sum_f64" per
+# pixel-lag that is summed (order-2 taps 22, the 9-tap sample 27, the
+# finiteness test 1; float64 Sa, Saa, Sb, and Sbb, Sab as FMAs)
+OPS = {"K2": {"pixel": 0, "lag": 32, "sum_f32": 50, "sum_f64": 7},
+       "K1 tan": {"pixel": 4, "lag": 35, "sum_f32": 50, "sum_f64": 7},
+       "K1 car": {"pixel": 0, "lag": 20, "sum_f32": 50, "sum_f64": 7}}
+
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernel_bound(kernel, n_ref, n_lags, n_summed, nbytes):
+    """(bound_ms, bound_by) of one launch: the larger of its operations
+    (:data:`OPS`, for the ``n_ref`` pixels that pass the ref test, the lags,
+    and the ``n_summed`` pixel-lags that were summed) over the float32 or
+    float64 peak and its bytes (each input read once, the output written
+    once) over the memory rate."""
+    ops = OPS[kernel]
+    f32 = n_ref * (ops["pixel"] + n_lags * ops["lag"]) \
+        + n_summed * ops["sum_f32"]
+    t_ops = max(f32 / PEAK_F32, n_summed * ops["sum_f64"] / PEAK_F64)
+    t_bytes = nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+CHECK_STRIDE = 37  # a timed launch is checked on every 37th lag
+
+
+def time_against_bound(label, kernel, launch, plain, operands, n_ref,
+                       repeat):
+    """Times ``launch`` (CUDA events), logs ms, pixel-lags/s, the bound and
+    the share on a line of their own, and returns them.  ``operands``: the
+    launch's input tensors (the table last, its rows are the lags).
+
+    Then holds the timed launch's Pearson sums against ``plain(table)``,
+    the plain version on the same card tensors, at every
+    :data:`CHECK_STRIDE`-th lag and the kernel's best lag: sums (counts
+    included) within TOL of each sum's largest magnitude, r within TOL and
+    undefined at the same lags, and the kernel's best lag the best of
+    those lags under the plain version too."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.engine import warp_score
+
+    ms = cuda_ms(launch, repeat=repeat)
+    sums = launch()
+    table = operands[-1]
+    n_lags = table.shape[0]
+    pixels = operands[1].numel()
+    nbytes = sum(t.numel() * t.element_size() for t in operands) \
+        + sums.numel() * sums.element_size()
+    bound, by = kernel_bound(kernel, n_ref, n_lags,
+                             float(sums[:, 0].sum()), nbytes)
+    out = {"lags": n_lags, "ms": ms, "pixel_lags_per_s":
+           pixels * n_lags / (ms * 1e-3), "bound_ms": bound, "bound_by": by,
+           "share": bound / ms}
+    log(f"[kernels] {label}: kernel {ms:.3f} ms, "
+        f"{out['pixel_lags_per_s']:.3e} pixel-lags/s, bound {bound:.3f} ms "
+        f"({by}), share {out['share']:.3f}")
+
+    got = sums.cpu().numpy()
+    best = int(np.nanargmax(warp_score.pearson_from_sums(got)))
+    rows = sorted(set(range(0, n_lags, CHECK_STRIDE)) | {best})
+    want = plain(table[rows]).cpu().numpy()
+    got = got[rows]
+    sum_err = float(np.max(np.abs(got - want) / np.max(np.abs(want), axis=0)))
+    r_got = warp_score.pearson_from_sums(got)
+    r_want = warp_score.pearson_from_sums(want)
+    same_nan = np.array_equal(np.isnan(r_got), np.isnan(r_want))
+    r_err = float(np.nanmax(np.abs(r_got - r_want)))
+    same_best = int(np.nanargmax(r_want)) == rows.index(best)
+    log(f"[kernels] {label}: {len(rows)} lags against the plain version "
+        f"({int(np.sum(want[:, 0] > 0))} with pixels): sums {sum_err:.2e}, "
+        f"|dr| {r_err:.2e} (tol {TOL:g}), best lag {best} best there too "
+        f"{same_best}")
+    if not (sum_err <= TOL and r_err <= TOL and same_best and same_nan):
+        raise AssertionError(f"{label}: the timed launch disagrees with the "
+                             f"plain version")
+    out.update(checked_lags=len(rows), max_abs_err=r_err)
+    return out
 
 
 def scene(u, v):
@@ -153,8 +259,24 @@ def phase_device():
     return card
 
 
+def log_ptxas(prefix, report):
+    """One line per main kernel of an nvcc -Xptxas -v report
+    (``_build.parse_ptxas``)."""
+    variant = {"quad_score_kernel": ("method", "correlation",
+                                     "residus_masked"),
+               "warp_score_kernel": ("kind", "tan", "car")}
+    for r in report:
+        what, *names = variant[r["kernel"]]
+        log(f"{prefix} {r['kernel']}<{r['dtype']}, order {r['order']}, "
+            f"{what} {names[r['variant']]}, LT {r['lag_tile']}>: "
+            f"{r['registers']} registers, {r['smem']} B smem, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+            f"spill loads")
+
+
 def phase_build():
-    """Both kernels built at once (one nvcc each, started together)."""
+    """Both kernels built at once (one nvcc each, started together); each
+    kernel's registers, shared memory and spills from nvcc's report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from euispice_coreg_tpu_torch.engine import _build
@@ -167,6 +289,7 @@ def phase_build():
     for name, kid in names.items():
         log(f"[build] {kid} csrc/{name}.cu: nvcc "
             f"{_build.BUILD_SECONDS[name]:.2f} s")
+        log_ptxas(f"[build] {kid}", _build.ptxas_report(name))
     log(f"[build] both loaded in {total:.2f} s (parallel) into "
         f"{os.path.relpath(_build.BUILD_DIR, REPO)}/")
     return {k: _build.BUILD_SECONDS[k] for k in names}
@@ -176,9 +299,10 @@ def phase_build():
 # phase 3: K1 against its plain version
 # ---------------------------------------------------------------------------
 
-def kernel_operands(n, kind, device, seed):
-    """Centred canvas/ref and lon/lat grids of an n x n case with NaN holes,
-    plus the base WCS (degrees)."""
+def kernel_operands(n, kind, device, seed, shape=None, dtype=None):
+    """Centred canvas/ref and lon/lat grids of an n x n case (or of
+    ``shape`` = (rows, columns) at n x n's pixel size) with NaN holes, in
+    ``dtype`` (float32 by default), plus the base WCS (degrees)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -188,8 +312,10 @@ def kernel_operands(n, kind, device, seed):
     from euispice_coreg_tpu_torch.engine import warp_score
     from euispice_coreg_tpu_torch.utils import coords
 
+    h, w = shape or (n, n)
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
-    x, y = coords.pixel_grid(n, n)
+    x, y = coords.pixel_grid(w, h)
     if kind == "tan":
         cdelt = CDELT_ARCSEC * (N / n) / 3600.0
         crota = 0.75
@@ -200,7 +326,7 @@ def kernel_operands(n, kind, device, seed):
         crval = (120.0, 0.0)
     pc = pc_from_crota(crota, cdelt, cdelt)
     base = {"crval1": crval[0], "crval2": crval[1],
-            "crpix1": (n + 1) / 2, "crpix2": (n + 1) / 2,
+            "crpix1": (w + 1) / 2, "crpix2": (h + 1) / 2,
             "cdelt1": cdelt, "cdelt2": cdelt,
             "pc11": pc[0], "pc12": pc[1], "pc21": pc[2], "pc22": pc[3],
             "crota": crota}
@@ -211,16 +337,17 @@ def kernel_operands(n, kind, device, seed):
     ref = scene(u, v)
     for img in (small, ref):
         for _ in range(4):
-            r0, c0 = rng.integers(0, n - n // 16, size=2)
-            img[r0:r0 + n // 32, c0:c0 + n // 16] = np.nan
+            r0 = rng.integers(0, h - h // 16)
+            c0 = rng.integers(0, w - w // 16)
+            img[r0:r0 + h // 32, c0:c0 + w // 16] = np.nan
 
     def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
     small_t = t(small)
     ref_t = t(ref)
-    ref_c = (ref_t - torch.nanmean(ref_t.double()).float()).contiguous()
-    small_c = small_t - torch.nanmean(small_t.double()).float()
+    ref_c = (ref_t - torch.nanmean(ref_t.double()).to(dtype)).contiguous()
+    small_c = small_t - torch.nanmean(small_t.double()).to(dtype)
     canvas = F.pad(small_c[None, None], (warp_score.PAD,) * 4,
                    mode="reflect")[0, 0].contiguous()
     return canvas, ref_c, t(lon), t(lat), base, cdelt
@@ -250,6 +377,18 @@ def slice_b_lags():
     step = 1.0 / 3600.0
     l12 = (np.arange(21) - 10) * step
     g = np.meshgrid(l12, l12, [0.0], [0.0], [-0.05, 0.0, 0.05], indexing="ij")
+    return np.stack([a.ravel() for a in g], axis=-1)
+
+
+def slice_d_lags():
+    """The slice-D grid (:func:`mixed_lags` with 3 CDELT steps) as
+    (11907, 5) lags in degrees."""
+    import numpy as np
+
+    m = mixed_lags(3)
+    axes = [np.asarray(m[k], dtype=np.float64) / 3600.0
+            for k in ("lag_crval1", "lag_crval2", "lag_cdelt1", "lag_cdelt2")]
+    g = np.meshgrid(*axes, np.asarray(m["lag_crota"]), indexing="ij")
     return np.stack([a.ravel() for a in g], axis=-1)
 
 
@@ -291,17 +430,18 @@ def phase_kernels(device):
                         f"order {order})")
                 max_err = max(max_err, r_err)
 
-    # timing at the slice shape: the slice-B grid (1323 lags), order 2
-    times = {}
+    # the slice-B grid (1323 lags), order 2: the plain version timed and
+    # every lag checked at 512^2 and 2048^2; then the kernel at 2048^2
+    # timed against its bound there and at the slice-D grid (11907 lags),
+    # each timed launch checked against the plain version on a subset
+    plain_ms = {}
     lags = slice_b_lags()
+    kw = dict(pad=warp_score.PAD, order=2, kind="tan")
     for n in (512, N):
         canvas, ref, lon, lat, base, _ = kernel_operands(n, "tan", device,
                                                          seed=1)
         table = torch.as_tensor(warp_score.lag_table(base, lags),
                                 dtype=torch.float32, device=device)
-        kw = dict(pad=warp_score.PAD, order=2, kind="tan")
-        k_ms = cuda_ms(lambda: warp_score.warp_score_sums(
-            canvas, ref, lon, lat, table, **kw))
         p_ms = cuda_ms(lambda: warp_score.warp_score_sums_reference(
             canvas, ref, lon, lat, table, **kw), repeat=1)
         got = warp_score.pearson_from_sums(
@@ -314,10 +454,23 @@ def phase_kernels(device):
         if not (err <= TOL and np.nanargmax(got) == np.nanargmax(want)):
             raise AssertionError(f"K1 timing run disagrees ({n}^2): {err}")
         max_err = max(max_err, err)
-        times[n] = (k_ms, p_ms)
-        log(f"[kernels] K1 {n}^2 x {len(lags)} lags, order 2, TAN: kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, |dr| {err:.2e}")
-    return max_err, times
+        plain_ms[n] = p_ms
+        log(f"[kernels] K1 {n}^2 x {len(lags)} lags, order 2, TAN: plain "
+            f"{p_ms:.3f} ms, |dr| {err:.2e}")
+    n_ref = int(torch.isfinite(ref).sum())
+    timings = []
+    for grid in (slice_b_lags(), slice_d_lags()):
+        table = torch.as_tensor(warp_score.lag_table(base, grid),
+                                dtype=torch.float32, device=device)
+        timings.append(time_against_bound(
+            f"K1 {N}^2 x {len(grid)} lags, order 2, TAN", "K1 tan",
+            lambda: warp_score.warp_score_sums(canvas, ref, lon, lat, table,
+                                               **kw),
+            lambda t: warp_score.warp_score_sums_reference(
+                canvas, ref, lon, lat, t, **kw),
+            (canvas, ref, lon, lat, table), n_ref, repeat=3))
+        max_err = max(max_err, timings[-1]["max_abs_err"])
+    return max_err, plain_ms[N], timings
 
 
 # ---------------------------------------------------------------------------
@@ -546,25 +699,30 @@ def phase_slice_b(p_large, p_small, hdr, tmp_dir):
 # phase 3b: K2 against its plain version
 # ---------------------------------------------------------------------------
 
-def k2_operands(n, device, seed):
-    """Pre-warped image and reference of an n x n case (smooth, positive,
-    NaN holes): the reference is the image moved by (dx, dy) = (5, -3)."""
+def k2_operands(n, device, seed, shape=None, dtype=None):
+    """Pre-warped image and reference of an n x n case (or of ``shape`` =
+    (rows, columns) at n x n's scale; smooth, positive, NaN holes), in
+    ``dtype`` (float32 by default): the reference is the image moved by
+    (dx, dy) = (5, -3)."""
     import numpy as np
     import torch
 
+    h, w = shape or (n, n)
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:n, 0:n] * (512.0 / n)
+    yy, xx = np.mgrid[0:h, 0:w] * (512.0 / n)
     warped = (100.0 + np.sin(xx / 9.0) * np.cos(yy / 13.0)
-              + 0.1 * rng.standard_normal((n, n)))
+              + 0.1 * rng.standard_normal((h, w)))
     ref = np.roll(warped, (3, -5), axis=(0, 1)) \
-        + 0.05 * rng.standard_normal((n, n))
+        + 0.05 * rng.standard_normal((h, w))
     for img in (warped, ref):
         for _ in range(4):
-            r0, c0 = rng.integers(0, n - n // 8, size=2)
-            img[r0:r0 + n // 32, c0:c0 + n // 16] = np.nan
+            r0 = rng.integers(0, h - h // 8)
+            c0 = rng.integers(0, w - w // 8)
+            img[r0:r0 + h // 32, c0:c0 + w // 16] = np.nan
 
     def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+        return torch.as_tensor(a, dtype=dtype or torch.float32,
+                               device=device)
 
     return t(warped), t(ref)
 
@@ -590,6 +748,12 @@ def k2_check_coeffs():
     c[7, 2] = (5.4, -2.6)
     c[7, 4, 1] = 5e-6
     return c
+
+
+# K2's timed lag grids (side, step in px): slice C's 441 and 14641 lags, and
+# 14641 lags at 20 px, shifts of up to 1200 px like the coarse run's on its
+# Carrington grid, where most pixel-lags fall off the grid
+K2_GRIDS = ((21, 1.0), (121, 0.5), (121, 20.0))
 
 
 def k2_grid_coeffs(n_side, step):
@@ -649,15 +813,16 @@ def phase_k2_kernels(device):
                         f"{method} order {order})")
                 max_err = max(max_err, s_err)
 
-    # timing at 2048^2, order 2: one shared 441-lag set, then K2 at 14641
+    # at 2048^2, order 2: the plain version timed and every lag checked on
+    # the 441-lag grid, then the kernel timed against its bound at each of
+    # K2_GRIDS, each timed launch checked against the plain version on a
+    # subset
     warped, ref = k2_operands(N, device, seed=5)
     canvas, ref_c = quad_score.quad_canvases(warped, ref,
                                              method="correlation")
     kw = dict(pad=quad_score.PAD, order=2, method="correlation")
     table = torch.as_tensor(quad_score.coeff_table(k2_grid_coeffs(21, 1.0)),
                             dtype=torch.float32, device=device)
-    k_ms = cuda_ms(lambda: quad_score.quad_score_sums(canvas, ref_c, table,
-                                                      **kw))
     p_ms = cuda_ms(lambda: quad_score.quad_score_sums_reference(
         canvas, ref_c, table, **kw), repeat=1)
     got = warp_score.pearson_from_sums(quad_score.quad_score_sums(
@@ -669,15 +834,135 @@ def phase_k2_kernels(device):
         raise AssertionError(f"K2 timing run disagrees: {err}")
     max_err = max(max_err, err)
     log(f"[kernels] K2 {N}^2 x {table.shape[0]} lags, order 2, correlation: "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, |dr| {err:.2e}")
-    table = torch.as_tensor(quad_score.coeff_table(k2_grid_coeffs(121, 0.5)),
-                            dtype=torch.float32, device=device)
-    big_ms = cuda_ms(lambda: quad_score.quad_score_sums(canvas, ref_c, table,
-                                                        **kw), repeat=2)
-    log(f"[kernels] K2 {N}^2 x {table.shape[0]} lags, order 2, correlation: "
-        f"kernel {big_ms:.3f} ms "
-        f"({N * N * table.shape[0] / (big_ms * 1e-3):.3e} pixel-lags/s)")
-    return max_err, (k_ms, p_ms, big_ms)
+        f"plain {p_ms:.3f} ms, |dr| {err:.2e}")
+    n_ref = int(torch.isfinite(ref_c).sum())
+    timings = []
+    for side, step in K2_GRIDS:
+        table = torch.as_tensor(
+            quad_score.coeff_table(k2_grid_coeffs(side, step)),
+            dtype=torch.float32, device=device)
+        timings.append(time_against_bound(
+            f"K2 {N}^2 x {table.shape[0]} lags at {step:g} px, order 2, "
+            f"correlation", "K2",
+            lambda: quad_score.quad_score_sums(canvas, ref_c, table, **kw),
+            lambda t: quad_score.quad_score_sums_reference(canvas, ref_c, t,
+                                                           **kw),
+            (canvas, ref_c, table), n_ref, repeat=3))
+        max_err = max(max_err, timings[-1]["max_abs_err"])
+    return max_err, p_ms, timings
+
+
+RAGGED_SHAPE = (517, 301)  # rows x columns: no multiple of the 8 x 32 tile
+
+
+def ragged_lag_counts(lag_tile):
+    """Lag counts that leave the last lag tile ragged: 1, LT + 1, 13, 441."""
+    return sorted({1, lag_tile + 1, 13, 441})
+
+
+def ragged_lags(kernel, n_lags, cdelt, seed):
+    """``n_lags`` lags around each case's true shift, the true shift among
+    them: (L, 5) in degrees for K1, (L, 6, 2) quadratic maps for K2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kernel == "K1":
+        lags = np.zeros((n_lags, 5))
+        lags[:, 0] = 3.0 * cdelt + rng.uniform(-4, 4, n_lags) * cdelt
+        lags[:, 1] = rng.uniform(-4, 4, n_lags) * cdelt
+        lags[:, 2] = rng.uniform(-0.005, 0.005, n_lags) * cdelt
+        lags[:, 4] = rng.uniform(-0.1, 0.1, n_lags)
+        lags[n_lags // 2] = (3.0 * cdelt, 0.0, 0.0, 0.0, 0.0)
+        return lags
+    c = np.zeros((n_lags, 6, 2))
+    c[:, 2, 0] = 5.0 + rng.uniform(-6, 6, n_lags)
+    c[:, 2, 1] = -3.0 + rng.uniform(-6, 6, n_lags)
+    c[:, 0, 0] = rng.uniform(-2e-3, 2e-3, n_lags)
+    c[:, 4, 1] = rng.uniform(-2e-6, 2e-6, n_lags)
+    c[n_lags // 2] = 0.0
+    c[n_lags // 2, 2] = (5.0, -3.0)
+    return c
+
+
+def phase_ragged(device):
+    """K1 and K2 against their plain versions where the tiles are ragged:
+    a 517 x 301 grid (no multiple of the 8 x 32 pixel tile) with NaN holes,
+    lag counts 1, LT + 1, 13 and 441 (the last lag tile ragged), float32
+    and float64, K1 TAN and CAR, K2 correlation and residus_masked, orders
+    0-2 in turn.  Same tolerances as above; two launches must give
+    bit-identical sums.  Returns the largest score difference of each
+    kernel."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import _build, quad_score, warp_score
+
+    lag_tile = {kid: warp_score.build_tiles(_build.load(name), name)[0]
+                for kid, name in (("K1", "warp_score"), ("K2", "quad_score"))}
+    log(f"[ragged] lag tile: K1 {lag_tile['K1']}, K2 {lag_tile['K2']}")
+    finish = {"correlation": warp_score.pearson_from_sums,
+              "residus_masked": quad_score.residus_from_sums,
+              "tan": warp_score.pearson_from_sums,
+              "car": warp_score.pearson_from_sums}
+    max_err = {"K1": 0.0, "K2": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        for case in ("tan", "car", "correlation", "residus_masked"):
+            kernel = "K1" if case in ("tan", "car") else "K2"
+            if kernel == "K1":
+                canvas, ref, lon, lat, base, cdelt = kernel_operands(
+                    512, case, device, seed=11, shape=RAGGED_SHAPE,
+                    dtype=dtype)
+            else:
+                warped, ref0 = k2_operands(512, device, seed=12,
+                                           shape=RAGGED_SHAPE, dtype=dtype)
+                canvas, ref = quad_score.quad_canvases(warped, ref0,
+                                                       method=case)
+                cdelt = 1.0
+            for k, n_lags in enumerate(ragged_lag_counts(lag_tile[kernel])):
+                order = (k + len(case)) % 3
+                lags = ragged_lags(kernel, n_lags, cdelt, seed=n_lags)
+                if kernel == "K1":
+                    table = torch.as_tensor(warp_score.lag_table(base, lags),
+                                            dtype=dtype, device=device)
+                    kw = dict(pad=warp_score.PAD, order=order, kind=case)
+
+                    def run(fn):
+                        return fn(canvas, ref, lon, lat, table, **kw)
+
+                    got = run(warp_score.warp_score_sums)
+                    again = run(warp_score.warp_score_sums)
+                    want = run(warp_score.warp_score_sums_reference)
+                else:
+                    table = torch.as_tensor(quad_score.coeff_table(lags),
+                                            dtype=dtype, device=device)
+                    kw = dict(pad=quad_score.PAD, order=order, method=case)
+                    got = quad_score.quad_score_sums(canvas, ref, table, **kw)
+                    again = quad_score.quad_score_sums(canvas, ref, table,
+                                                       **kw)
+                    want = quad_score.quad_score_sums_reference(
+                        canvas, ref, table, **kw)
+                torch.cuda.synchronize()
+                same_bits = bool(torch.equal(got, again))
+                got, want = got.cpu().numpy(), want.cpu().numpy()
+                sum_err = float(np.max(np.abs(got - want)
+                                       / np.max(np.abs(want), axis=0)))
+                s_got, s_want = finish[case](got), finish[case](want)
+                s_err = float(np.max(np.abs(s_got - s_want)))
+                pick = np.nanargmin if case == "residus_masked" \
+                    else np.nanargmax
+                same_arg = int(pick(s_got)) == int(pick(s_want))
+                log(f"[ragged] {kernel} {case} {str(dtype)[6:]} "
+                    f"{RAGGED_SHAPE[0]}x{RAGGED_SHAPE[1]} x {n_lags} lags, "
+                    f"order {order}: sums {sum_err:.2e}, |dscore| "
+                    f"{s_err:.2e} (tol {TOL:g}), best lag equal {same_arg}, "
+                    f"two launches bit-identical {same_bits}")
+                if not (sum_err <= TOL and s_err <= TOL and same_arg
+                        and same_bits and np.all(want[:, 0] > 0)):
+                    raise AssertionError(
+                        f"{kernel} {case} {dtype} x {n_lags} lags disagrees "
+                        f"with its plain version or itself")
+                max_err[kernel] = max(max_err[kernel], s_err)
+    return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1178,7 @@ def phase_coarse(engine_log):
     log(f"[coarse] {N}^2 grid, {CARR_LAGS}^2 at {COARSE_STEP}\", auto -> K2: argmax "
         f"{got:+.1f}\" / {l1[mi[1]] * 3600.0:+.1f}\", engine call first "
         f"{t_first:.3f} s, warm {t_warm:.3f} s")
+    log_stages("coarse", run)
 
 
 def phase_sunpy(p_large, p_small):
@@ -1252,8 +1538,9 @@ def main():
     port_logger.setLevel(logging.INFO)
 
     build_s = phase_build()
-    max_err, times = phase_kernels(torch.device(DEVICE))
-    k2_err, k2_times = phase_k2_kernels(torch.device(DEVICE))
+    max_err, p_ms, k1_timings = phase_kernels(torch.device(DEVICE))
+    k2_err, k2_plain_ms, k2_timings = phase_k2_kernels(torch.device(DEVICE))
+    ragged_err = phase_ragged(torch.device(DEVICE))
 
     with tempfile.TemporaryDirectory() as tmp_dir:
         p_large, p_small, hdr = write_pair(tmp_dir)
@@ -1286,29 +1573,42 @@ def main():
         phase_slice_e(p_small, c_small, tmp_dir, engine_log)
         phase_slice_f(tmp_dir)
 
-    k_ms, p_ms = times[N]
-    k2_ms, k2_plain_ms, k2_big_ms = k2_times
     log(f"[summary] card {card}; nvcc K1 {build_s['warp_score']:.2f} s, "
-        f"K2 {build_s['quad_score']:.2f} s; K2 at 14641 lags "
-        f"{k2_big_ms:.3f} ms")
+        f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 lags "
+        f"{k1_timings[0]['ms']:.3f} / {k1_timings[1]['ms']:.3f} ms, K2 at "
+        f"441 / 14641 / 14641 wide lags " + " / ".join(
+            f"{t['ms']:.3f}" for t in k2_timings) + " ms")
+    # no single PyTorch call computes either function (grid_sample has no
+    # order-2 B-spline, no mirror rule at sample_image's edge and no masked
+    # sums), so library_ms is null
     print(json.dumps({"kernels": [{
         "name": "warp_score (K1)",
         "route": "cuda",
         "source": "euispice_coreg_tpu_torch/csrc/warp_score.cu",
         "replaces": "euispice_coreg_tpu/engine/pallas_warp.py:40",
         "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
+        "max_abs_err": max(max_err, ragged_err["K1"]),
+        "ms": k1_timings[0]["ms"],
         "plain_ms": p_ms,
+        "bound_ms": k1_timings[0]["bound_ms"],
+        "bound_by": k1_timings[0]["bound_by"],
+        "share": k1_timings[0]["share"],
+        "library_ms": None,
+        "timings": k1_timings,
     }, {
         "name": "quad_score (K2)",
         "route": "cuda",
         "source": "euispice_coreg_tpu_torch/csrc/quad_score.cu",
         "replaces": "euispice_coreg_tpu/engine/pallas_quad.py:39",
         "launches": k2_launches,
-        "max_abs_err": k2_err,
-        "ms": k2_ms,
+        "max_abs_err": max(k2_err, ragged_err["K2"]),
+        "ms": k2_timings[0]["ms"],
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_timings[0]["bound_ms"],
+        "bound_by": k2_timings[0]["bound_by"],
+        "share": k2_timings[0]["share"],
+        "library_ms": None,
+        "timings": k2_timings,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

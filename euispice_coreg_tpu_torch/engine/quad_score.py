@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from ..core import resample
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import _build
-from .warp_score import MAX_LAGS, PAD, TARGET_BLOCKS, THREADS, pearson_from_sums
+from .warp_score import (MAX_LAGS, PAD, build_tiles, launch_geometry,
+                         pearson_from_sums)
 
 # kernel launches made by quad_score_sums (CUDA tensors only)
 LAUNCHES = 0
@@ -166,8 +167,7 @@ def quad_score_sums(canvas, ref, table, *, pad, order, method):
     raise RuntimeError(f"quad_score: no kernel for device {canvas.device}")
 
 
-def _kernel_fn(dtype):
-    lib = _build.load("quad_score")
+def _kernel_fn(lib, dtype):
     fn = lib.quad_score_sums_f32 if dtype == torch.float32 \
         else lib.quad_score_sums_f64
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
@@ -178,20 +178,22 @@ def _kernel_fn(dtype):
 
 def _launch(canvas, ref, table, *, pad, order, method):
     global LAUNCHES
-    fn = _kernel_fn(canvas.dtype)
+    lib = _build.load("quad_score")
+    fn = _kernel_fn(lib, canvas.dtype)
     h, w = ref.shape
     n_lags = table.shape[0]
     n_sums = N_SUMS[method]
-    n_blocks = max(1, min(-(-h * w // THREADS), -(-TARGET_BLOCKS // n_lags)))
+    _, n_groups = launch_geometry(h, w, n_lags,
+                                  build_tiles(lib, "quad_score"))
     dev = canvas.device
-    partial = torch.empty((n_lags, n_blocks, n_sums), dtype=torch.float64,
+    partial = torch.empty((n_lags, n_groups, n_sums), dtype=torch.float64,
                           device=dev)
     out = torch.empty((n_lags, n_sums), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(canvas.data_ptr(), ref.data_ptr(), table.data_ptr(),
                  partial.data_ptr(), out.data_ptr(), h, w, pad, n_lags,
-                 n_blocks, order, METHODS[method], stream)
+                 n_groups, order, METHODS[method], stream)
     if err != 0:
         raise RuntimeError(f"quad_score kernel launch failed: CUDA error "
                            f"{err}")

@@ -36,9 +36,8 @@ from . import _build
 LAUNCHES = 0
 
 PAD = 2           # canvas mirror padding: order <= 2 taps reach 1 px out
-THREADS = 256     # csrc/warp_score.cu kThreads
-TARGET_BLOCKS = 8192  # blocks per launch to aim for (132 SMs x several waves)
-MAX_LAGS = 65535  # gridDim.y limit: lags per launch
+TARGET_BLOCKS = 8192  # blocks per launch to aim for (132 SMs x many waves)
+MAX_LAGS = 65535  # lags per launch (the C entry points' limit)
 KINDS = {"tan": 0, "car": 1}
 TABLE_KEYS = ("crval1", "crval2", "crpix1", "crpix2", "cdelt1", "cdelt2",
               "pc11", "pc12", "pc21", "pc22")
@@ -154,8 +153,33 @@ def warp_score_sums(canvas, ref, lon, lat, table, *, pad, order, kind):
     raise RuntimeError(f"warp_score: no kernel for device {canvas.device}")
 
 
-def _kernel_fn(dtype):
-    lib = _build.load("warp_score")
+def build_tiles(lib, name):
+    """``(lags per block, pixel tile rows, pixel tile columns)`` of a build
+    of ``csrc/<name>.cu`` (its ``<name>_tiles`` entry point)."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(lib, f"{name}_tiles")
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    fn(ctypes.addressof(out))
+    return tuple(out)
+
+
+def launch_geometry(h, w, n_lags, tiles):
+    """Grid of K1 and K2 (csrc/sampling.cuh) for an (h, w) grid and
+    ``n_lags`` lags: ``(n_lag_tiles, n_groups)``.
+
+    ``tiles`` is the build's :func:`build_tiles`.  A block scores the lags
+    of one lag tile over every ``n_groups``-th pixel tile.  ``n_groups``
+    aims at :data:`TARGET_BLOCKS` blocks in all, at most one group per pixel
+    tile, so the grid and the (n_lags, n_groups, n_sums) float64 partial
+    buffer stay bounded at any lag count."""
+    lag_tile, tile_rows, tile_cols = tiles
+    n_tiles = -(-h // tile_rows) * -(-w // tile_cols)
+    n_lag_tiles = -(-n_lags // lag_tile)
+    n_groups = max(1, min(n_tiles, -(-TARGET_BLOCKS // n_lag_tiles)))
+    return n_lag_tiles, n_groups
+
+
+def _kernel_fn(lib, dtype):
     fn = lib.warp_score_sums_f32 if dtype == torch.float32 \
         else lib.warp_score_sums_f64
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
@@ -166,19 +190,21 @@ def _kernel_fn(dtype):
 
 def _launch(canvas, ref, lon, lat, table, *, pad, order, kind):
     global LAUNCHES
-    fn = _kernel_fn(canvas.dtype)
+    lib = _build.load("warp_score")
+    fn = _kernel_fn(lib, canvas.dtype)
     h, w = ref.shape
     n_lags = table.shape[0]
-    n_blocks = max(1, min(-(-h * w // THREADS), -(-TARGET_BLOCKS // n_lags)))
+    _, n_groups = launch_geometry(h, w, n_lags,
+                                  build_tiles(lib, "warp_score"))
     dev = canvas.device
-    partial = torch.empty((n_lags, n_blocks, 6), dtype=torch.float64,
+    partial = torch.empty((n_lags, n_groups, 6), dtype=torch.float64,
                           device=dev)
     out = torch.empty((n_lags, 6), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(canvas.data_ptr(), ref.data_ptr(), lon.data_ptr(),
                  lat.data_ptr(), table.data_ptr(), partial.data_ptr(),
-                 out.data_ptr(), h, w, pad, n_lags, n_blocks, order,
+                 out.data_ptr(), h, w, pad, n_lags, n_groups, order,
                  KINDS[kind], stream)
     if err != 0:
         raise RuntimeError(f"warp_score kernel launch failed: CUDA error "

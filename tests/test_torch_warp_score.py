@@ -151,6 +151,33 @@ def test_k1_declines_like_jax():
     assert out is not None and np.isfinite(out).all()
 
 
+def test_launch_geometry_bounds_grid_and_partials():
+    """The kernels' grid (csrc/sampling.cuh), from the tiles a build
+    reports (lags per block, pixel tile rows and columns): every lag in one
+    lag tile (the last one ragged), at most one pixel group per pixel tile,
+    about TARGET_BLOCKS blocks, so the (L, groups, 6) float64 partial buffer
+    stays a few MB at 14641 lags."""
+    for h, w, n_lags, lag_tile in ((2048, 2048, 14641, 4),
+                                   (2048, 2048, 1323, 2), (517, 301, 1, 8),
+                                   (517, 301, 441, 1), (8, 32, 3, 2),
+                                   (3, 3, 65535, 4)):
+        tiles, groups = warp_score.launch_geometry(h, w, n_lags,
+                                                   (lag_tile, 8, 32))
+        pixel_tiles = -(-h // 8) * -(-w // 32)
+        assert (tiles - 1) * lag_tile < n_lags <= tiles * lag_tile
+        assert 1 <= groups <= min(pixel_tiles, warp_score.TARGET_BLOCKS)
+        assert groups == 1 or tiles * groups < warp_score.TARGET_BLOCKS \
+            + tiles
+    tiles, groups = warp_score.launch_geometry(2048, 2048, 14641, (4, 8, 32))
+    assert (tiles, groups) == (3661, 3)
+    assert 14641 * groups * 6 * 8 < 3e6  # bytes of the partial buffer
+    assert warp_score.launch_geometry(517, 301, 441, (1, 8, 32)) == (441, 19)
+    assert warp_score.launch_geometry(8, 32, 3, (2, 8, 32)) == (2, 1)
+    # the pixel tile is the build's: 16 tiles of 8 x 32, 4 of 32 x 32
+    assert warp_score.launch_geometry(64, 64, 1, (1, 8, 32)) == (1, 16)
+    assert warp_score.launch_geometry(64, 64, 1, (1, 32, 32)) == (1, 4)
+
+
 def _operands():
     ds, ref, lon, lat, base, _ = build_case("tan", n=96)
     base, small, ref_t, lon_t, lat_t = from_jax_state(
