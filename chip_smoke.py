@@ -77,12 +77,32 @@ Phases (each prints its own lines; any failure exits nonzero):
                in {-1, 0, +1} deg: argmax (7, -5, 0), r = 1 within 1e-6,
                pearson_integer_shifts against a direct float64 window
                Pearson at 3 offsets within 1e-6.
-10. summary -- the kernels line (JSON, K1 and K2, with every timing against
-               its bound), then
+10. slice G -- SPICE: an L2 cube of 192 raster steps x 1024 rows x 48
+               spectral pixels (4" x 1.098", 60 s a step) rendered through
+               its true pointing and handed over with a CRVAL that the lag
+               (+8", -4") corrects, and 20 HRIEUV-like frames (2048^2 at
+               0.492", 600 s apart) spanning the 3.2 h raster.  (G1)
+               SPICEComposedMapBuilder.process: the synthetic raster
+               against the scene within 1e-4 relative; (G2)
+               AlignmentSpice.align_using_helioprojective, "auto", 41x41
+               CRVAL at 1" (FFT path); (G3) 21x21 at 1" x CDELT1 {-0.08,
+               0, +0.08}" x CROTA {-0.2, 0, +0.2} deg = 3969 candidates
+               under "pallas" (K1) and "auto" (block path), CRVAL argmax
+               equal; (G4) align_using_carrington("fa"), "pallas" (K2),
+               41x41 at 1" on a 1024^2 Carrington grid over the raster;
+               G2-G4 recover (+8", -4") within (2", 1"); (G5) the iterative
+               context raster, batched, 11x11 at 1" x 3 CROTA = 363 lags in
+               chunks of 64, 9 of them again through the sequential route
+               (within 1e-6).  K1 and K2 timed against their bounds at
+               G3's and G4's operands; the compose and chunk-score device
+               functions timed on G5's first chunk.
+11. summary -- the kernels line (JSON, K1 and K2, with every timing against
+               its bound, slice G's among them), then
                {"ok": true, "device": ...} as the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -1525,6 +1545,410 @@ def phase_slice_f(tmp_dir):
                              f"direct {errs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: slice G, SPICE (synthetic raster, AlignmentSpice, iterative)
+# ---------------------------------------------------------------------------
+
+SPICE_SHAPE = (192, 1024, 48)  # raster steps, detector rows, spectral pixels
+SPICE_CDELT = (4.0, 1.098)     # arcsec at SPICE_SHAPE (the FOV is kept)
+SPICE_STEP_S = 60.0            # seconds a raster step (PC4_1)
+SPICE_CRVAL = (120.0, 80.0)    # true pointing, arcsec
+SPICE_SHIFT = (8.0, -4.0)      # the lag that corrects the handed-over CRVAL
+SPICE_TOL = (2.0, 1.0)         # half a raster step, 1 arcsec
+SPICE_BEG = "2022-03-17T09:00:00.000"
+IMAGER_FRAMES = 20             # HRIEUV-like frames at N^2 ...
+IMAGER_CADENCE = 600.0         # ... this many seconds apart
+SPICE_LAGS = 41                # CRVAL lags per axis at 1" (G2, G4)
+SPICE_CARR_N = 1024            # Carrington grid of G4
+ITER_LAGS, ITER_CHUNK = 11, 64  # G5: 11x11 CRVAL at 1" x 3 CROTA
+# G1: the raster against the analytic scene (the order-2 spline smooths
+# the blobs by ~(pixel / width)^2 / 8, under 1e-5 at 0.492" pixels)
+SYNRAS_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def record_calls(module, name):
+    """Within the block, ``module.name`` records the arguments of every call
+    (the call itself goes through unchanged); yields the list of
+    ``(args, kwargs)``."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def spice_scene(lon, lat):
+    """300 Gaussian blobs (11-36" wide) over +-540": structure across the
+    whole raster at the SPICE pixel scale.  ``lon``/``lat``: float64
+    tensors in degrees."""
+    import numpy as np
+    import torch
+
+    out = torch.full_like(lon, 100.0)
+    rng = np.random.default_rng(17)
+    for _ in range(300):
+        cx, cy = rng.uniform(-0.15, 0.15, size=2)
+        w = rng.uniform(0.003, 0.01)
+        out += rng.uniform(0.5, 3.0) * torch.exp(
+            -((lon - cx) ** 2 + (lat - cy) ** 2) / (2 * w * w))
+    return out
+
+
+CARR_KEYS = {"DSUN_OBS": 0.5 * 1.496e11, "CRLN_OBS": 120.0,
+             "CRLT_OBS": 3.0, "RSUN_REF": 6.957e8, "SOLAR_B0": 3.0}
+
+
+def spice_header(crval):
+    """The 4-D SPICE L2 header (x, y, WAVE, UTC; time coupled to x through
+    PC4_1) at ``crval`` (arcsec), with the Carrington keys."""
+    from euispice_coreg_tpu_torch.core.header import Header
+    from euispice_coreg_tpu_torch.utils import timeutils
+
+    nx, ny, nl = SPICE_SHAPE
+    c1 = SPICE_CDELT[0] * 192 / nx
+    c2 = SPICE_CDELT[1] * 1024 / ny
+    t_mid = timeutils.parse_fits_time(SPICE_BEG) + SPICE_STEP_S * nx / 2
+    return Header({
+        "NAXIS": 4, "NAXIS1": nx, "NAXIS2": ny, "NAXIS3": nl, "NAXIS4": 1,
+        "CTYPE1": "HPLN-TAN", "CTYPE2": "HPLT-TAN", "CTYPE3": "WAVE",
+        "CTYPE4": "UTC", "CUNIT1": "deg", "CUNIT2": "deg", "CUNIT3": "nm",
+        "CUNIT4": "s", "CRVAL1": crval[0] / 3600.0,
+        "CRVAL2": crval[1] / 3600.0, "CRVAL3": 77.0,
+        "CRVAL4": SPICE_STEP_S * nx / 2, "CRPIX1": (nx + 1) / 2,
+        "CRPIX2": (ny + 1) / 2, "CRPIX3": (nl + 1) / 2, "CRPIX4": 1.0,
+        "CDELT1": c1 / 3600.0, "CDELT2": c2 / 3600.0, "CDELT3": 0.0025,
+        "CDELT4": 1.0, "PC1_1": 1.0, "PC2_2": 1.0, "PC3_3": 1.0,
+        "PC4_4": 1.0, "PC4_1": SPICE_STEP_S, "CROTA": 0.0,
+        "NBIN2": 1024 // ny, "DETECTOR": "SW", "PXBEG2": 1,
+        "DATEREF": SPICE_BEG, "DATE-BEG": SPICE_BEG, "DATE-OBS": SPICE_BEG,
+        "DATE-AVG": timeutils.format_fits_time(t_mid), "LEVEL": "L2",
+        **CARR_KEYS,
+    })
+
+
+def spice_world(hdr_spatial):
+    """World grid (deg, float64 tensors on the card) of a 2-D header."""
+    import torch
+
+    from euispice_coreg_tpu_torch.core.header import wcs_params_from_header
+    from euispice_coreg_tpu_torch.engine import lag_search
+
+    p = wcs_params_from_header(hdr_spatial)
+    return lag_search.compute_world_grid(
+        p.as_dict(), int(hdr_spatial["NAXIS2"]), int(hdr_spatial["NAXIS1"]),
+        p.kind, True, device=DEVICE, compute_dtype=torch.float64)
+
+
+def write_spice_inputs(tmp_dir):
+    """The L2 cube (the scene through the true pointing, a Gaussian line
+    over the spectral pixels) written with the handed-over header, and the
+    imager frames (one rendering, DATE-AVG 600 s apart, the first 300 s
+    after the raster starts)."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.core.header import Header
+    from euispice_coreg_tpu_torch.hdrshift.alignment_spice import \
+        spatial_header_from_spice_l2
+    from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.utils import timeutils
+
+    nx, ny, nl = SPICE_SHAPE
+    hdr_true = spice_header(SPICE_CRVAL)
+    lon, lat = spice_world(spatial_header_from_spice_l2(hdr_true, nx, ny))
+    k = torch.arange(nl, dtype=torch.float64, device=DEVICE)
+    line = torch.exp(-0.5 * ((k - (nl - 1) / 2) / (nl / 8)) ** 2)
+    cube = spice_scene(lon, lat)[None] * (line / line.sum())[:, None, None]
+    hdr_given = spice_header((SPICE_CRVAL[0] - SPICE_SHIFT[0],
+                              SPICE_CRVAL[1] - SPICE_SHIFT[1]))
+    p_spice = os.path.join(tmp_dir, "solo_L2_spice-n-ras_g.fits")
+    fits.write(p_spice, [fits.PrimaryHDU(
+        data=cube[None].float().cpu().numpy(), header=hdr_given)])
+
+    cdelt = CDELT_ARCSEC * 2048 / N
+    hdr = Header({
+        "NAXIS1": N, "NAXIS2": N, "CRVAL1": 0.0, "CRVAL2": 0.0,
+        "CRPIX1": (N + 1) / 2, "CRPIX2": (N + 1) / 2, "CDELT1": cdelt,
+        "CDELT2": cdelt, "CUNIT1": "arcsec", "CUNIT2": "arcsec",
+        "CTYPE1": "HPLN-TAN", "CTYPE2": "HPLT-TAN", "CROTA": 0.0,
+        "WAVELNTH": 174, "DETECTOR": "HRI_EUV", **CARR_KEYS})
+    data = spice_scene(*spice_world(hdr)).float().cpu().numpy()
+    t0 = timeutils.parse_fits_time(SPICE_BEG) + IMAGER_CADENCE / 2
+    paths = []
+    for f in range(IMAGER_FRAMES):
+        hdr["DATE-AVG"] = timeutils.format_fits_time(t0 + IMAGER_CADENCE * f)
+        hdr["DATE-OBS"] = hdr["DATE-AVG"]
+        paths.append(os.path.join(tmp_dir, f"solo_L2_eui-hrieuv174_{f}.fits"))
+        fits.write(paths[-1], [fits.PrimaryHDU(data=data, header=hdr)])
+    return p_spice, paths, hdr_given
+
+
+def check_spice_recovery(label, lag1, lag2, res):
+    """argmax and fit within SPICE_TOL of SPICE_SHIFT on both axes."""
+    mi = res.max_index
+    got = [(lag1[mi[0]], lag2[mi[1]]), tuple(res.shift_arcsec[:2])]
+    for g in got:
+        if not all(abs(g[i] - SPICE_SHIFT[i]) < SPICE_TOL[i] for i in (0, 1)):
+            raise AssertionError(f"{label} missed {SPICE_SHIFT}: argmax "
+                                 f"{got[0]}, fit {got[1]}")
+    return (f"argmax {got[0][0]:+.1f}\" / {got[0][1]:+.1f}\", fit "
+            f"{got[1][0]:+.3f}\" / {got[1][1]:+.3f}\"")
+
+
+def spice_carrington_limits(hdr_given):
+    """Carrington lon/lat limits (deg) of the raster's slit rows within
+    the dumbbells, inset by 5 % a side."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+    from euispice_coreg_tpu_torch.hdrshift.alignment_spice import (
+        SpiceUtil, spatial_header_from_spice_l2)
+
+    nx, ny, _ = SPICE_SHAPE
+    h = spatial_header_from_spice_l2(hdr_given, nx, ny)
+    for ax in (1, 2):
+        h[f"CRVAL{ax}"] *= 3600.0
+        h[f"CDELT{ax}"] *= 3600.0
+        h[f"CUNIT{ax}"] = "arcsec"
+    h.update({"CROTA": 0.0, **CARR_KEYS})
+    ymin, ymax = SpiceUtil.vertical_edges_limits(hdr_given)
+    px, py = np.meshgrid(np.arange(nx, dtype=np.float64),
+                         np.arange(ymin, ymax, dtype=np.float64))
+    lon, lat = carr.spherical_unproject(
+        px, py, carr.header_spherical_scalars(h, 1.004))
+    out = []
+    for v in (lon, lat):
+        lo, hi = float(np.nanmin(v)), float(np.nanmax(v))
+        out.append((lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo)))
+    return out
+
+
+def phase_slice_g(tmp_dir, engine_log):
+    """Slice G (module docstring).  Returns the K1 and K2 timings at G3's and
+    G4's operands, each with its launches on that path."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+    from euispice_coreg_tpu_torch.hdrshift import (
+        AlignementSpiceIterativeContextRaster, AlignmentSpice)
+    from euispice_coreg_tpu_torch.hdrshift import alignment_spice
+    from euispice_coreg_tpu_torch.hdrshift.alignment_spice import \
+        spatial_header_from_spice_l2
+    from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.synras import SPICEComposedMapBuilder
+    from euispice_coreg_tpu_torch.synras import map_builder
+    from euispice_coreg_tpu_torch.utils import obs
+
+    nx, ny, nl = SPICE_SHAPE
+    t0 = time.perf_counter()
+    p_spice, paths, hdr_given = write_spice_inputs(tmp_dir)
+    log(f"[slice G] inputs: L2 cube {nx}x{ny}x{nl} "
+        f"({os.path.getsize(p_spice) / 1e6:.1f} MB), {IMAGER_FRAMES} frames "
+        f"of {N}^2, written in {time.perf_counter() - t0:.1f} s")
+
+    # G1: the synthetic raster, first (frames read and moved to the card)
+    # and again (frames cached by the builder)
+    builder = SPICEComposedMapBuilder(p_spice, paths, threshold_time=600.0,
+                                      window_imager=0, window_spectro=0,
+                                      device=DEVICE)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_synras = builder.process(tmp_dir, basename_output="synras_g.fits",
+                                   print_filename=False,
+                                   return_synras_name=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    composed = fits.open(p_synras)[0].data.astype(np.float64)
+    lon, lat = spice_world(spatial_header_from_spice_l2(hdr_given, nx, ny))
+    want = spice_scene(lon, lat).cpu().numpy()
+    ok = np.isfinite(composed)
+    err = float(np.max(np.abs(composed[ok] - want[ok]) / want[ok]))
+    n_frames = len(np.unique(builder.dates_selected))
+    log(f"[slice G1] SPICEComposedMapBuilder.process: {composed.shape} "
+        f"raster from {n_frames} frames, finite {ok.mean():.3f}, max "
+        f"|raster - scene| / scene {err:.2e} (tol {SYNRAS_TOL:g}); "
+        f"{times[0]:.3f} s "
+        f"first, {times[1]:.3f} s with the frames cached")
+    if not (err <= SYNRAS_TOL and ok.mean() > 0.8 and n_frames == IMAGER_FRAMES):
+        raise AssertionError(f"slice G1: raster off the scene ({err}, "
+                             f"finite {ok.mean()}, frames {n_frames})")
+
+    lag = (np.arange(SPICE_LAGS) - SPICE_LAGS // 2) * 1.0
+
+    def spice(mode, return_type="AlignmentResults", carrington=None, **lags):
+        lags = lags or dict(lag_crval1=lag, lag_crval2=lag)
+        A = AlignmentSpice(p_synras, p_spice, large_fov_window=0,
+                           small_fov_window=0, lag_search_mode=mode,
+                           device=DEVICE, **lags)
+        if carrington:
+            out = A.align_using_carrington(return_type=return_type,
+                                           **carrington)
+        else:
+            out = A.align_using_helioprojective(return_type=return_type)
+        torch.cuda.synchronize()
+        return out
+
+    def timed_run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = spice(*args, **kwargs)
+        return out, time.perf_counter() - t0
+
+    # G2: CRVAL grid, auto -> the FFT path
+    engine_log.lines.clear()
+    res, t_first = timed_run("auto")
+    if "engine path: FFT fast (crval grid)" not in engine_log.lines:
+        raise AssertionError(f"slice G2 did not take the FFT path: "
+                             f"{engine_log.lines}")
+    rec = check_spice_recovery("slice G2", lag, lag, res)
+    _, t_warm = timed_run("auto", "corr")
+    log(f"[slice G2] AlignmentSpice helioprojective, {SPICE_LAGS}^2 CRVAL at "
+        f"1\", auto (FFT path): {rec}; API call first {t_first:.3f} s, warm "
+        f"{t_warm:.3f} s")
+    log_stages("slice G2", lambda: spice("auto", "corr"))
+
+    # G3: the mixed grid, pallas (K1) then auto (block path)
+    l21 = (np.arange(21) - 10) * 1.0
+    mixed = dict(lag_crval1=l21, lag_crval2=l21,
+                 lag_cdelt1=[-0.08, 0.0, 0.08], lag_crota=[-0.2, 0.0, 0.2])
+    warp_score.LAUNCHES = 0
+    with record_calls(warp_score, "warp_score_sums") as k1_calls:
+        res_k1, t_k1 = timed_run("pallas", **mixed)
+    k1_launches = warp_score.LAUNCHES
+    if k1_launches <= 0:
+        raise AssertionError("slice G3 pallas did not launch K1")
+    engine_log.lines.clear()
+    res_blk, t_blk = timed_run("auto", **mixed)
+    if "engine path: FFT block fast (mixed grid)" not in engine_log.lines:
+        raise AssertionError(f"slice G3 auto did not take the block path: "
+                             f"{engine_log.lines}")
+    n_cand = res_k1.corr[..., 0].size
+
+    def argmax5(res):
+        return tuple(int(i) for i in res.max_index[:5])
+
+    rec_k1 = check_spice_recovery("slice G3 pallas", l21, l21, res_k1)
+    rec_blk = check_spice_recovery("slice G3 auto", l21, l21, res_blk)
+    log(f"[slice G3] {n_cand} candidates: pallas (K1, {k1_launches} "
+        f"launch(es)) {rec_k1}, 5-D argmax {argmax5(res_k1)}, API call "
+        f"{t_k1:.3f} s; auto (block path) {rec_blk}, 5-D argmax "
+        f"{argmax5(res_blk)}, API call {t_blk:.3f} s; max |dcorr| "
+        f"{float(np.nanmax(np.abs(res_k1.corr - res_blk.corr))):.3e}")
+    if tuple(res_k1.max_index[:2]) != tuple(res_blk.max_index[:2]):
+        raise AssertionError("slice G3: K1 and the block path disagree on "
+                             "the CRVAL argmax")
+
+    # G4: Carrington "fa" on K2, a 1024^2 grid over the raster
+    lonlims, latlims = spice_carrington_limits(hdr_given)
+    carr = dict(lonlims=lonlims, latlims=latlims,
+                shape=(SPICE_CARR_N, SPICE_CARR_N))
+    engine_log.lines.clear()
+    quad_score.LAUNCHES = 0
+    with record_calls(quad_score, "quad_score_sums") as k2_calls:
+        res, t_first = timed_run("pallas", carrington=carr)
+    k2_launches = quad_score.LAUNCHES
+    want_lines = ("engine path: carrington linearized select",
+                  f"carrington select: K2 quad kernel ({SPICE_LAGS ** 2} "
+                  f"lags)")
+    if k2_launches <= 0 or not all(m in engine_log.lines for m in want_lines):
+        raise AssertionError(f"slice G4 did not run K2 ({k2_launches} "
+                             f"launches): {engine_log.lines}")
+    rec = check_spice_recovery("slice G4", lag, lag, res)
+    _, t_warm = timed_run("pallas", "corr", carrington=carr)
+    log(f"[slice G4] AlignmentSpice Carrington fa, {SPICE_CARR_N}^2 grid "
+        f"lon {lonlims[0]:.3f}..{lonlims[1]:.3f}, lat {latlims[0]:.3f}.."
+        f"{latlims[1]:.3f} deg, {SPICE_LAGS}^2 at 1\", pallas: K2 "
+        f"{k2_launches} launch(es), {rec}; API call first {t_first:.3f} s, "
+        f"warm {t_warm:.3f} s")
+    log_stages("slice G4", lambda: spice("pallas", "corr", carrington=carr))
+
+    # G5: the iterative context raster, batched, around the truth
+    l1 = SPICE_SHIFT[0] + (np.arange(ITER_LAGS) - ITER_LAGS // 2) * 1.0
+    l2 = SPICE_SHIFT[1] + (np.arange(ITER_LAGS) - ITER_LAGS // 2) * 1.0
+    rota = [-0.2, 0.0, 0.2]
+
+    def iterative(lag1, lag2, **kw):
+        A = AlignementSpiceIterativeContextRaster(
+            paths, p_spice, threshold_time=600.0, lag_crval1=lag1,
+            lag_crval2=lag2, lag_crota=rota, large_fov_window=0,
+            small_fov_window=0, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = A.align_using_helioprojective(return_type="corr", **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with obs.collect_stages() as st, \
+            record_calls(alignment_spice, "_iter_chunk_scores") as scores, \
+            record_calls(map_builder, "_sample_frame_all_lags") as samples:
+        corr_b, t_b = iterative(l1, l2, lag_chunk=ITER_CHUNK)
+    n_lags = corr_b.size
+    mi = np.unravel_index(np.nanargmax(corr_b), corr_b.shape)
+    best = (l1[mi[0]], l2[mi[1]], rota[mi[4]])
+    if not (all(abs(best[i] - SPICE_SHIFT[i]) < SPICE_TOL[i] for i in (0, 1))
+            and np.all(np.isfinite(corr_b))):
+        raise AssertionError(f"slice G5 missed {SPICE_SHIFT}: {best}")
+    pick1, pick2 = [0, ITER_LAGS // 2, ITER_LAGS - 1], [ITER_LAGS // 2 - 1]
+    corr_s, t_s = iterative(l1[pick1], l2[pick2], batch_lags=False)
+    d_seq = float(np.max(np.abs(corr_s - corr_b[np.ix_(pick1, pick2)])))
+    log(f"[slice G5] iterative context raster, {n_lags} lags ({ITER_LAGS}^2 "
+        f"CRVAL at 1\" x 3 CROTA), batched in chunks of {ITER_CHUNK}: argmax "
+        f"{best[0]:+.1f}\" / {best[1]:+.1f}\" / {best[2]:+.1f} deg; "
+        f"{t_b:.3f} s, {t_b / n_lags * 1e3:.2f} ms per lag (frames read "
+        f"included; compose {st.get('iter_compose_s', 0.0):.3f} s, score "
+        f"{st.get('iter_score_s', 0.0):.3f} s); sequential route on "
+        f"{corr_s.size} lags {t_s / corr_s.size * 1e3:.1f} ms per lag, max "
+        f"|batched - sequential| {d_seq:.2e} (tol 1e-6)")
+    if not d_seq <= 1e-6:
+        raise AssertionError(f"slice G5: batched and sequential differ by "
+                             f"{d_seq}")
+
+    # the two device functions on G5's first chunk (CUDA events)
+    first = scores[0][0][0]  # the chunk's stacked composed-grid params
+    frame_calls = [c for c in samples if c[0][0] is samples[0][0][0]]
+    ms_compose = cuda_ms(lambda: [map_builder._sample_frame_all_lags(*a)
+                                  for a, _ in frame_calls])
+    ms_score = cuda_ms(lambda: alignment_spice._iter_chunk_scores(
+        *scores[0][0]))
+    log(f"[slice G5] device functions on the first chunk "
+        f"({int(first['crval1'].shape[0])} lags, {ny}x{nx}): "
+        f"_sample_frame_all_lags over its {len(frame_calls)} frames "
+        f"{ms_compose:.3f} ms, _iter_chunk_scores {ms_score:.3f} ms")
+
+    # K1 and K2 against their bounds at the operands this slice gave them
+    out = {}
+    for kid, kernel, mod, fn, calls, launches in (
+            ("K1", "K1 tan", warp_score, "warp_score_sums", k1_calls,
+             k1_launches),
+            ("K2", "K2", quad_score, "quad_score_sums", k2_calls,
+             k2_launches)):
+        args, kw = calls[0]
+        launch = getattr(mod, fn)
+        plain = getattr(mod, fn + "_reference")
+        ref = args[1]
+        shape = "x".join(str(n) for n in ref.shape)
+        out[kid] = time_against_bound(
+            f"{kid} slice G {shape} x {args[-1].shape[0]} lags", kernel,
+            lambda: launch(*args, **kw),
+            lambda t: plain(*args[:-1], t, **kw), args,
+            int(torch.isfinite(ref).sum()), repeat=3)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), repeat=1)
+        log(f"[kernels] {kid} slice G {shape}: plain version {plain_ms:.3f} "
+            f"ms")
+        out[kid].update(slice="G", launches=launches, plain_ms=plain_ms)
+    return out
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, REPO)
@@ -1573,10 +1997,15 @@ def main():
         phase_slice_e(p_small, c_small, tmp_dir, engine_log)
         phase_slice_f(tmp_dir)
 
+        # slice G: SPICE (G3 and G4 set their kernel's count to 0 first)
+        g_timings = phase_slice_g(tmp_dir, engine_log)
+    k1_timings.append(g_timings["K1"])
+    k2_timings.append(g_timings["K2"])
+
     log(f"[summary] card {card}; nvcc K1 {build_s['warp_score']:.2f} s, "
-        f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 lags "
-        f"{k1_timings[0]['ms']:.3f} / {k1_timings[1]['ms']:.3f} ms, K2 at "
-        f"441 / 14641 / 14641 wide lags " + " / ".join(
+        f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 / slice G "
+        f"lags " + " / ".join(f"{t['ms']:.3f}" for t in k1_timings)
+        + " ms, K2 at 441 / 14641 / 14641 wide / slice G lags " + " / ".join(
             f"{t['ms']:.3f}" for t in k2_timings) + " ms")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked
@@ -1587,7 +2016,8 @@ def main():
         "source": "euispice_coreg_tpu_torch/csrc/warp_score.cu",
         "replaces": "euispice_coreg_tpu/engine/pallas_warp.py:40",
         "launches": main_launches,
-        "max_abs_err": max(max_err, ragged_err["K1"]),
+        "max_abs_err": max(max_err, ragged_err["K1"],
+                           g_timings["K1"]["max_abs_err"]),
         "ms": k1_timings[0]["ms"],
         "plain_ms": p_ms,
         "bound_ms": k1_timings[0]["bound_ms"],
@@ -1601,7 +2031,8 @@ def main():
         "source": "euispice_coreg_tpu_torch/csrc/quad_score.cu",
         "replaces": "euispice_coreg_tpu/engine/pallas_quad.py:39",
         "launches": k2_launches,
-        "max_abs_err": max(k2_err, ragged_err["K2"]),
+        "max_abs_err": max(k2_err, ragged_err["K2"],
+                           g_timings["K2"]["max_abs_err"]),
         "ms": k2_timings[0]["ms"],
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_timings[0]["bound_ms"],

@@ -42,6 +42,29 @@ def header_world_grid(hdr: Header, wrap: bool | None = None):
     return lon, lat
 
 
+def stack_wcs_params(headers):
+    """WCS params of many headers stacked into (L, 1, 1) float64 arrays.
+
+    The core transforms broadcast over batched parameters (core/wcs.py
+    module docstring), so one ``pixel_to_world``/``world_to_pixel`` call
+    maps a (ny, nx) grid through all L WCSes at once (the batched iterative
+    context raster).  All headers must share the projection ``kind``.
+    Returns ``(params_dict, kind)``.
+    """
+    ps = [wcs_params_from_header(h) for h in headers]
+    kind = ps[0].kind
+    if any(p.kind != kind for p in ps[1:]):
+        raise ValueError("mixed projection kinds in stacked WCS params")
+    keys = ("crval1", "crval2", "crpix1", "crpix2",
+            "cdelt1", "cdelt2", "pc11", "pc12", "pc21", "pc22")
+    params = {
+        k: np.array([getattr(p, k) for p in ps],
+                    dtype=np.float64).reshape(-1, 1, 1)
+        for k in keys
+    }
+    return params, kind
+
+
 def world_to_pixel_of_header(hdr: Header, lon_deg, lat_deg):
     """World (deg) -> 0-based pixel coordinates of ``hdr``'s grid."""
     params = wcs_params_from_header(hdr)

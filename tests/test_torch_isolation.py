@@ -47,6 +47,31 @@ def test_cuda_alignment_without_card_raises(tmp_path):
                   device="cuda")
 
 
+def test_cuda_spice_entry_points_without_card_raise(tmp_path):
+    """The SPICE entry points with device='cuda' raise before any file is
+    read (the paths do not exist)."""
+    from euispice_coreg_tpu_torch.hdrshift import (
+        AlignementSpiceIterativeContextRaster, AlignmentSpice)
+    from euispice_coreg_tpu_torch.hdrshift.alignment_spice_selector import \
+        AlignmentSpiceSelector
+    from euispice_coreg_tpu_torch.pxlshift import AlignmentSpicePixel
+    from euispice_coreg_tpu_torch.synras import SPICEComposedMapBuilder
+
+    _no_card()
+    a, b = str(tmp_path / "a.fits"), str(tmp_path / "solo_L2_b.fits")
+    calls = [
+        lambda: AlignmentSpice(a, b, device="cuda"),
+        lambda: AlignementSpiceIterativeContextRaster([a], b, 60.0,
+                                                      device="cuda"),
+        lambda: SPICEComposedMapBuilder(b, [a], 60.0, device="cuda"),
+        lambda: AlignmentSpicePixel(a, 0, b, 0, device="cuda"),
+        lambda: AlignmentSpiceSelector(b, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
 def test_cuda_kernel_call_without_card_raises():
     """No CPU fallback: the K1 entry point with device='cuda' raises, and a
     tensor on neither the CPU nor a card reaches no plain version."""
