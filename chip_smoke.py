@@ -96,7 +96,24 @@ Phases (each prints its own lines; any failure exits nonzero):
                (within 1e-6).  K1 and K2 timed against their bounds at
                G3's and G4's operands; the compose and chunk-score device
                functions timed on G5's first chunk.
-11. summary -- the kernels line (JSON, K1 and K2, with every timing against
+11. slice H -- tile-compressed FITS, as the SIDC distributes EUI files:
+               slice A's pair (photon-noise-like sigma 0.05 added, a block
+               of NaNs in the small image) written as RICE_1 float32
+               (quantize level 16, SUBTRACTIVE_DITHER_1, row tiles), the
+               small image once more as HCOMPRESS_1 (16-row tiles).  (H1)
+               fits.open of each timed against the uncompressed file,
+               every decode within one quantization step (its tile's
+               ZSCALE) of the source, NaNs where the source has them; (H2)
+               Alignment on the compressed pair under "auto" (FFT path,
+               +8" within 1") and "pallas" (K1, slice B's grid, within
+               1.5"), first and warm API times and the stage clocks
+               (api_fits_load_s includes the decode); write_corrected_fits
+               to a compressed output, timed and read back: a
+               CompImageHDU with the input's ZCMPTYPE, ZQUANTIZ and ZTILE,
+               the corrected CRVAL1/2, data within one quantization step of
+               the input's decode.  No figure is drawn: the card's machine
+               has no matplotlib, and the script imports none.
+12. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's among them), then
                {"ok": true, "device": ...} as the last line.
 """
@@ -1949,6 +1966,205 @@ def phase_slice_g(tmp_dir, engine_log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: slice H, tile-compressed FITS in and out of the helioprojective
+# path
+# ---------------------------------------------------------------------------
+
+H_NOISE = 0.05       # photon-noise-like sigma added to slice A's pair
+H_COMPRESSION = dict(quantize_level=16.0,
+                     quantize_method="SUBTRACTIVE_DITHER_1")
+H_HCOMP_ROWS = 16    # HCOMPRESS_1 tiles of 16 rows (cfitsio's default)
+
+
+def host_ms(fn, repeat=3):
+    """Best host milliseconds of ``fn`` over ``repeat`` runs; and its
+    result."""
+    best, out = None, None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best, out
+
+
+def check_within_step(label, got, want, path):
+    """``got`` within one quantization step of ``want`` (the step of each
+    pixel's tile in ``path``, 0 for a tile stored losslessly), NaN where
+    ``want`` is NaN.  Returns the largest error in steps."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.io import tile_compression
+
+    step = tile_compression.quantization_steps(path, 1)
+    nan_ok = np.array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    err = np.abs(got[fin].astype(np.float64) - want[fin])
+    q = step[fin] > 0
+    worst = float(np.max(err[q] / step[fin][q])) if q.any() else 0.0
+    exact = bool(np.all(err[~q] == 0.0))
+    log(f"[slice H] {label}: {q.mean() * 100:.1f}% of pixels quantized, "
+        f"largest error {worst:.3f} step(s), lossless tiles exact {exact}, "
+        f"NaNs where the source has NaNs {nan_ok}")
+    if not (worst <= 1.0 and exact and nan_ok):
+        raise AssertionError(f"slice H {label}: not within one quantization "
+                             f"step of the source")
+    return worst
+
+
+def phase_slice_h(p_large, p_small, tmp_dir, engine_log):
+    """Slice A's pair as real EUI files are distributed: tile-compressed
+    float32 (RICE_1, quantize level 16, SUBTRACTIVE_DITHER_1, row tiles;
+    photon-noise-like sigma H_NOISE added, a dead-pixel block of NaNs in the
+    small image), and the small image once more as HCOMPRESS_1.  H1 times
+    the port's fits.open of each against the uncompressed file and checks
+    each decode within one quantization step; H2 aligns the compressed
+    pair under "auto" (FFT path) and "pallas" (K1, slice B's grid), writes
+    the correction back compressed and reads it back.  Returns K1's
+    launches in the "pallas" run."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch import Alignment
+    from euispice_coreg_tpu_torch.engine import warp_score
+    from euispice_coreg_tpu_torch.io import fits, native
+    from euispice_coreg_tpu_torch.utils import obs
+
+    build_ms, _ = host_ms(native._load, repeat=1)
+    log(f"[slice H] codecs (io/native/*.cpp) built with g++ and loaded in "
+        f"{build_ms / 1e3:.2f} s")
+    rng = np.random.default_rng(11)
+    src = {}
+    paths = {}
+    for name, path in (("large", p_large), ("small", p_small)):
+        hdu = fits.open(path)[0]
+        data = (hdu.data + rng.normal(0.0, H_NOISE, hdu.data.shape)).astype(
+            np.float32)
+        if name == "small":
+            data[N // 3: N // 3 + 8, N // 7: N // 7 + 120] = np.nan
+        src[name] = (data, hdu.header)
+        paths[name] = os.path.join(tmp_dir, f"{name}_rice.fits")
+    hcomp_path = os.path.join(tmp_dir, "small_hcompress.fits")
+
+    writes = {}
+    for name in ("large", "small"):
+        data, hdr = src[name]
+        writes[f"RICE_1 {name}"] = host_ms(lambda: fits.write(
+            paths[name], [fits.PrimaryHDU(), fits.CompImageHDU(
+                data=data, header=hdr, name="HRI", compression_type="RICE_1",
+                **H_COMPRESSION)]), repeat=1)[0]
+    data, hdr = src["small"]
+    writes["HCOMPRESS_1 small"] = host_ms(lambda: fits.write(
+        hcomp_path, [fits.PrimaryHDU(), fits.CompImageHDU(
+            data=data, header=hdr, name="HRI",
+            compression_type="HCOMPRESS_1", tile_shape=(H_HCOMP_ROWS, N),
+            **H_COMPRESSION)]), repeat=1)[0]
+    log(f"[slice H] compressed writes (host ms): " + ", ".join(
+        f"{k} {v:.1f} ({os.path.getsize(p) / 2**20:.2f} MiB)" for (k, v), p
+        in zip(writes.items(), (paths["large"], paths["small"], hcomp_path)))
+        + f"; uncompressed {os.path.getsize(p_small) / 2**20:.2f} MiB")
+
+    # H1: read and decode
+    plain_ms, _ = host_ms(lambda: fits.open(p_small))
+    reads = {}
+    for label, path, want in (("RICE_1 large", paths["large"],
+                               src["large"][0]),
+                              ("RICE_1 small", paths["small"],
+                               src["small"][0]),
+                              ("HCOMPRESS_1 small", hcomp_path,
+                               src["small"][0])):
+        reads[label], hdul = host_ms(lambda: fits.open(path))
+        hdu = hdul[1]
+        if not (isinstance(hdu, fits.CompImageHDU)
+                and hdu.data.dtype == np.float32 and hdu.data.shape == (N, N)):
+            raise AssertionError(f"slice H {label}: decoded {type(hdu)} "
+                                 f"{hdu.data.dtype} {hdu.data.shape}")
+        check_within_step(label, hdu.data, want, path)
+    log(f"[slice H] fits.open (host ms, best of 3): uncompressed "
+        f"{plain_ms:.1f}, " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in reads.items()))
+
+    # H2: align the compressed pair, then write the correction back
+    lag_a = (np.arange(121) - 60) * 0.5
+    lag_b = (np.arange(21) - 10) * 1.0
+
+    def make(mode):
+        lag = lag_a if mode == "auto" else lag_b
+        return Alignment(paths["large"], paths["small"], lag_crval1=lag,
+                         lag_crval2=lag,
+                         lag_crota=None if mode == "auto" else
+                         [-0.05, 0.0, 0.05],
+                         small_fov_window=1, large_fov_window=1,
+                         lag_search_mode=mode, device=DEVICE)
+
+    def align(mode):
+        res = make(mode).align_using_helioprojective()
+        torch.cuda.synchronize()
+        return res
+
+    results = {}
+    k1_launches = 0
+    for mode, lag, tol in (("auto", lag_a, 1.0), ("pallas", lag_b, 1.5)):
+        engine_log.lines.clear()
+        warp_score.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = align(mode)
+        t_first = time.perf_counter() - t0
+        launched = warp_score.LAUNCHES
+        plane = res.corr[:, :, 0, 0, res.corr.shape[4] // 2, 0]
+        mi = np.unravel_index(np.nanargmax(plane), plane.shape)
+        if abs(lag[mi[0]] - TRUE_SHIFT) >= tol or (
+                mode == "auto" and abs(res.shift_arcsec[0] - TRUE_SHIFT) >= tol):
+            raise AssertionError(f"slice H {mode} missed +8\": argmax "
+                                 f"{lag[mi[0]]}, fit {res.shift_arcsec}")
+        if mode == "auto" and \
+                "engine path: FFT fast (crval grid)" not in engine_log.lines:
+            raise AssertionError(f"slice H auto did not take the FFT fast "
+                                 f"path: {engine_log.lines}")
+        if mode == "pallas":
+            if launched <= 0:
+                raise AssertionError("slice H pallas did not launch K1")
+            k1_launches = launched
+        t_warm, _ = host_ms(lambda: align(mode), repeat=2)
+        with obs.collect_stages() as st:
+            align(mode)
+        log(f"[slice H] {mode}: argmax {lag[mi[0]]:+.1f}\" / "
+            f"{lag[mi[1]]:+.1f}\", fit {res.shift_arcsec[0]:+.3f}\" / "
+            f"{res.shift_arcsec[1]:+.3f}\", K1 launches {launched}; API "
+            f"first {t_first:.3f} s, warm {t_warm / 1e3:.3f} s; stages (ms): "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()))
+        results[mode] = res
+
+    res = results["auto"]
+    out_path = os.path.join(tmp_dir, "small_rice_corrected.fits")
+    write_ms, _ = host_ms(lambda: res.write_corrected_fits([1], out_path),
+                          repeat=1)
+    inp = fits.open(paths["small"])[1]
+    back = fits.open(out_path)[1]
+    if not isinstance(back, fits.CompImageHDU):
+        raise AssertionError(f"slice H: corrected window is {type(back)}")
+    for key in ("ZCMPTYPE", "ZQUANTIZ", "ZTILE1", "ZTILE2"):
+        if back.header[key] != inp.header[key]:
+            raise AssertionError(f"slice H: corrected {key} "
+                                 f"{back.header[key]} != {inp.header[key]}")
+    for axis in (1, 2):
+        want = inp.header[f"CRVAL{axis}"] + res.shift_arcsec[axis - 1]
+        if abs(back.header[f"CRVAL{axis}"] - want) > 1e-9:
+            raise AssertionError(f"slice H: corrected CRVAL{axis} "
+                                 f"{back.header[f'CRVAL{axis}']} != {want}")
+    check_within_step("corrected output vs the input's decode", back.data,
+                      inp.data.astype(np.float64), out_path)
+    log(f"[slice H] write_corrected_fits (RICE_1 {back.header['ZQUANTIZ']}, "
+        f"tiles {back.header['ZTILE1']}x{back.header['ZTILE2']}) "
+        f"{write_ms:.1f} ms host; CRVAL1 {inp.header['CRVAL1']:.4f}\" -> "
+        f"{back.header['CRVAL1']:.4f}\" (true "
+        f"{inp.header['CRVAL1'] + TRUE_SHIFT:.4f}\")")
+    if "matplotlib" in sys.modules:
+        raise AssertionError("the port's main path imported matplotlib")
+    return k1_launches
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, REPO)
@@ -1999,6 +2215,9 @@ def main():
 
         # slice G: SPICE (G3 and G4 set their kernel's count to 0 first)
         g_timings = phase_slice_g(tmp_dir, engine_log)
+
+        # slice H: tile-compressed files (sets K1's count to 0 first)
+        phase_slice_h(p_large, p_small, tmp_dir, engine_log)
     k1_timings.append(g_timings["K1"])
     k2_timings.append(g_timings["K2"])
 

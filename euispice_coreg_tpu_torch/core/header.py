@@ -372,3 +372,10 @@ def wcs_params_from_header(hdr: Header) -> WCSParams:
         kind=kind,
     )
 
+
+def get_naxis(hdr: Header):
+    """(naxis1, naxis2), preferring ZNAXIS for tile-compressed HDUs
+    (``alignment.py:1071-1079``)."""
+    if "ZNAXIS1" in hdr:
+        return int(hdr["ZNAXIS1"]), int(hdr["ZNAXIS2"])
+    return int(hdr["NAXIS1"]), int(hdr["NAXIS2"])

@@ -96,3 +96,28 @@ def sample_image(image, x, y, order: int = 2, cval=math.nan):
             ixm = _mirror(ix, w)
             acc = acc + (wyi * wxi) * flat[iym * w + ixm]
     return torch.where(invalid, cval, acc)
+
+
+def interpol2d(image, x, y, fill=math.nan, order: int = 2, dst=None, *,
+               device="cuda"):
+    """API-compatible stand-in for ``AlignCommonUtil.interpol2d``
+    (``Util.py:82-104``): note the (x, y) argument order.
+
+    Counterpart of ``interpol2d`` in ``euispice_coreg_tpu/core/resample.py``.
+    A tensor ``image`` samples on its own device in its own dtype; numpy
+    inputs go to ``device`` in float64 and come back as a tensor there.
+    With ``dst`` the result is written into it and None is returned."""
+    if isinstance(image, torch.Tensor):
+        dev, dt = image.device, image.dtype
+    else:
+        from ..utils.torchcfg import resolve_device
+
+        dev, dt = resolve_device(device), torch.float64
+    img, xs, ys = (a.to(device=dev, dtype=dt) if isinstance(a, torch.Tensor)
+                   else torch.as_tensor(a, dtype=dt).to(dev)
+                   for a in (image, x, y))
+    out = sample_image(img, xs, ys, order=order, cval=fill)
+    if dst is None:
+        return out
+    dst[...] = out.cpu().numpy()
+    return None

@@ -15,13 +15,14 @@ constructor and the same three entry points (``align_using_helioprojective``,
 
 ``device`` is required to exist: ``device="cuda"`` without a card raises.
 ``parallelism`` and ``counts_cpu_max`` are accepted no-ops, as in the JAX
-package.  Not ported yet (ROADMAP.md): the diagnostic figures
-(``path_save_figure``), the Carrington tile-FFT evaluator
-(``lag_search_mode="tile_fft"`` on a Carrington grid) and multi-device
-meshes.
+package.  ``path_save_figure`` saves the same diagnostic figures as the JAX
+package (matplotlib, imported only then).  Not ported yet (ROADMAP.md):
+the Carrington tile-FFT evaluator (``lag_search_mode="tile_fft"`` on a
+Carrington grid) and multi-device meshes.
 """
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -33,7 +34,7 @@ from ..engine import carrington as carr_engine
 from ..engine import lag_search
 from ..utils import coords, units
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
-from .results import PLOT_NOT_PORTED, AlignmentResults
+from .results import AlignmentResults
 
 
 class Alignment:
@@ -92,8 +93,6 @@ class Alignment:
     ):
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(compute_dtype)
-        if path_save_figure is not None:
-            raise NotImplementedError(PLOT_NOT_PORTED)
         if (use_device_mesh and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
@@ -397,6 +396,7 @@ class Alignment:
                     reference_date=self.reference_date, rate_wave=rate_wave,
                     order=self.order, device=self.device,
                     compute_dtype=self.compute_dtype, as_numpy=False)
+            self._save_carrington_figures(ref_img, d_solar_r, rate_wave)
             with self._progress_scope():
                 corr5 = carr_engine.evaluate_lag_grid_carrington(
                     small, ref_img, self.hdr_small, self.lonlims,
@@ -443,6 +443,7 @@ class Alignment:
                     self.data_large, self.hdr_large, self.hdr_small,
                     d_solar_r=float(d_solar_r), order=self.order,
                     device=self.device, compute_dtype=self.compute_dtype)
+            self._save_solar_surface_figures(ref_img)
             with timed(f"lag-grid search ({n_lags} candidates)"), \
                     self._progress_scope():
                 corr5 = lag_search.evaluate_lag_grid(
@@ -488,6 +489,108 @@ class Alignment:
         base = {**small_params.as_dict(), "crota": get_crota(self.hdr_small)}
         return lon, lat, ref_img, base, kind
 
+    # ------------------------------------------------------------------
+    # in-alignment diagnostic figures (reference alignment.py:988-1012,
+    # 903-927, 955-972 — saved when ``path_save_figure`` is set)
+    # ------------------------------------------------------------------
+    def _figpath(self, name: str) -> str:
+        os.makedirs(self.path_save_figure, exist_ok=True)
+        return os.path.join(self.path_save_figure, name)
+
+    def _save_projected_figures(self, ref_img):
+        """Reprojected large/small FOV + compare figures for a projected
+        search (the reference saves these inside
+        ``_create_submap_of_large_data``, alignment.py:988-1016)."""
+        if self.path_save_figure is None:
+            return
+        from matplotlib import pyplot as plt
+
+        from ..plot import plot
+
+        plot.simple_plot(self.hdr_large, self.data_large, show=False,
+                         path_save=self._figpath("large_fov_before_cut.pdf"),
+                         device=self.device)
+        date_small = str(self.hdr_small.get(
+            "DATE-AVG", self.hdr_small.get("DATE-OBS", "unknown")))
+        date_small = date_small.replace(":", "_")
+        submap = ref_img.to(torch.float64).cpu().numpy()
+        # after the cut the reference grid IS the small header's grid
+        plot.simple_plot(self.hdr_small, submap, show=False,
+                         path_save=self._figpath(f"large_fov_{date_small}.pdf"),
+                         device=self.device)
+        plot.simple_plot(self.hdr_small, self.data_small, show=False,
+                         path_save=self._figpath(f"small_fov_{date_small}.pdf"),
+                         device=self.device)
+        levels = [0.15 * np.nanmax(self.data_small)]
+        plot.contour_plot(self.hdr_small, submap, self.hdr_small,
+                          self.data_small, levels=levels, show=False,
+                          path_save=self._figpath(f"compare_plot_{date_small}.pdf"),
+                          device=self.device)
+        plt.close("all")
+
+    def _save_carrington_figures(self, ref_img, d_solar_r, rate_wave):
+        """Reprojected large + small Carrington FOV figures (the reference
+        saves these inside ``_carrington_transform_fa``,
+        alignment.py:903-927; its dlat extent bug — latlims mixed with
+        lonlims — is not reproduced)."""
+        if self.path_save_figure is None:
+            return
+        from matplotlib import pyplot as plt
+
+        from ..plot import plot
+
+        dlon = (self.lonlims[1] - self.lonlims[0]) / self.shape[0]
+        dlat = (self.latlims[1] - self.latlims[0]) / self.shape[1]
+        extent = (self.lonlims[0] - 0.5 * dlon, self.lonlims[1] + 0.5 * dlon,
+                  self.latlims[0] - 0.5 * dlat, self.latlims[1] + 0.5 * dlat)
+        date_obs = str(self.hdr_large.get(
+            "DATE-OBS", self.hdr_large.get("DATE-AVG", "unknown")))[:19]
+        plot.plot_fov(ref_img.to(torch.float64).cpu().numpy(), show=False,
+                      path_save=self._figpath(f"image_large_{date_obs}.pdf"),
+                      extent=extent,
+                      xlabel="carrington longitude [°]",
+                      ylabel="carrington latitude [°]")
+        image_small = carr_engine.reproject_to_carrington(
+            self._to_device(self.data_small), self.hdr_small, self.lonlims,
+            self.latlims, self.shape, d_solar_r=float(d_solar_r),
+            reference_date=self.reference_date, rate_wave=rate_wave,
+            order=self.order, device=self.device,
+            compute_dtype=self.compute_dtype)
+        date_obs = str(self.hdr_small.get(
+            "DATE-OBS", self.hdr_small.get("DATE-AVG", "unknown")))[:19]
+        plot.plot_fov(image_small, show=False,
+                      path_save=self._figpath(f"image_small_{date_obs}.pdf"),
+                      extent=extent,
+                      xlabel="carrington longitude [°]",
+                      ylabel="carrington latitude [°]")
+        plt.close("all")
+
+    def _save_solar_surface_figures(self, ref_img):
+        """Small / large / reprojected-large figures for the native
+        sunpy-equivalent branch (reference alignment.py:955-972)."""
+        if self.path_save_figure is None:
+            return
+        from matplotlib import pyplot as plt
+
+        from ..plot import plot
+
+        date_obs = str(self.hdr_large.get(
+            "DATE-OBS", self.hdr_large.get("DATE-AVG", "unknown")))[:19]
+        plot.simple_plot_sunpy((self.data_small, self.hdr_small), show=False,
+                               path_save=self._figpath(f"image_small_{date_obs}.pdf"),
+                               device=self.device)
+        date_obs = str(self.hdr_small.get(
+            "DATE-OBS", self.hdr_small.get("DATE-AVG", "unknown")))[:19]
+        plot.simple_plot_sunpy((self.data_large, self.hdr_large), show=False,
+                               path_save=self._figpath(f"image_large_{date_obs}.pdf"),
+                               device=self.device)
+        plot.simple_plot_sunpy(
+            (ref_img, self.hdr_small),
+            show=False,
+            path_save=self._figpath(f"image_large_rep_{date_obs}.pdf"),
+            device=self.device)
+        plt.close("all")
+
     def _run_projected_search(self, wrap: bool):
         """Shared helioprojective / initial-carrington search body."""
         from ..utils.obs import logger, timed
@@ -498,6 +601,7 @@ class Alignment:
             enable_console_logging()
 
         lon, lat, ref_img, base, kind = self._prepare_projected_operands(wrap)
+        self._save_projected_figures(ref_img)
 
         l1, l2, l3, l4, l5 = self._lags_deg(wrap=wrap)
         n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)

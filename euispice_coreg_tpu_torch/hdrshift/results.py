@@ -18,7 +18,9 @@ from scipy.optimize import curve_fit
 from ..core.header import correct_pointing_header
 from ..utils import units
 
-PLOT_NOT_PORTED = "plot/: not yet ported, see ROADMAP"
+# what a CompImageHDU carries of its file's compression (io/fits.py)
+_COMPRESSION_SETTINGS = ("compression_type", "quantize_level",
+                         "quantize_method", "dither_seed", "tile_shape")
 
 
 def _maybe_int(s: str):
@@ -236,11 +238,15 @@ class AlignmentResults:
                 data = None if hdu.data is None else np.asarray(hdu.data, dtype=np.float32)
                 # re-wrap by input class like the reference (Util.py:143-150):
                 # compressed windows stay tile-compressed (quantized <f4)
+                # with the input's codec, quantization and tiles (the JAX
+                # package writes its writer defaults instead)
                 if isinstance(hdu, fits.CompImageHDU):
-                    cls = fits.CompImageHDU
+                    out.append(fits.CompImageHDU(
+                        data=data, header=header,
+                        **{k: getattr(hdu, k) for k in _COMPRESSION_SETTINGS}))
                 else:
                     cls = fits.PrimaryHDU if ii == 0 else fits.ImageHDU
-                out.append(cls(data=data, header=header))
+                    out.append(cls(data=data, header=header))
                 corrected += 1
             else:
                 out.append(hdu)
@@ -317,14 +323,41 @@ class AlignmentResults:
         return filename
 
     # ------------------------------------------------------------------
-    # figures: the plot/ package is not ported yet (ROADMAP.md)
-    # ------------------------------------------------------------------
     def plot_correlation(self, path_save_figure=None, show=False, fig=None, ax=None):
-        raise NotImplementedError(PLOT_NOT_PORTED)
+        from ..plot import plot
+
+        return plot.plot_correlation(
+            corr=self.corr,
+            show=show,
+            path_save_figure=path_save_figure,
+            fig=fig,
+            ax=ax,
+            shift=self.shift_arcsec,
+            unit_to_plot=self.unit_lag,
+            lag_dx_label=f"CRVAL1 [{self.unit_lag}]",
+            lag_dy_label=f"CRVAL2 [{self.unit_lag}]",
+            **self.parameters_alignment_arcsec,
+        )
 
     def plot_co_alignment(self, path_save_figure=None, show=False,
                           lonlims=None, latlims=None, **kwargs):
-        raise NotImplementedError(PLOT_NOT_PORTED)
+        """Before/after figure (:func:`plot.plot_co_alignment`); pass
+        ``device="cpu"`` to resample on the CPU."""
+        from ..plot import plot
+
+        return plot.plot_co_alignment(
+            reference_image_path=self.reference_image_path,
+            reference_image_window=self.reference_image_window,
+            image_to_align_path=self.image_to_align_path,
+            image_to_align_window=self.image_to_align_window,
+            path_save_figure=path_save_figure,
+            shift_arcsec=self.shift_arcsec,
+            show=show,
+            unit_to_plot=self.unit_lag,
+            lonlims=lonlims,
+            latlims=latlims,
+            **kwargs,
+        )
 
     def __str__(self):
         s = self.shift_arcsec

@@ -8,10 +8,10 @@ FITS 4.0 byte format directly:
 * 2880-byte header blocks of 80-char cards, END-terminated
 * BITPIX 8/16/32/64/-32/-64 big-endian data, BSCALE/BZERO/BLANK scaling
 * primary + IMAGE extensions, EXTNAME lookup, negative indexing
+* tile-compressed (ZIMAGE binary-table) image extensions via the native
+  C++ codecs in :mod:`euispice_coreg_tpu_torch.io.native` and
+  :mod:`euispice_coreg_tpu_torch.io.tile_compression`
 * ``http(s)://`` paths fetched with requests (like astropy's remote open)
-
-Tile-compressed (ZIMAGE binary-table) HDUs raise ``NotImplementedError``:
-their codecs are not part of this package yet (see ROADMAP.md).
 
 Headers parse into :class:`euispice_coreg_tpu_torch.core.header.Header`;
 data into numpy arrays.
@@ -45,8 +45,6 @@ _DTYPE_BITPIX = {
     np.dtype("float32"): -32,
     np.dtype("float64"): -64,
 }
-
-_TILE_COMPRESSED = "tile-compressed HDUs: not yet ported, see ROADMAP"
 
 _NUMERIC_RE = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)([EDed][+-]?\d+)?$")
 
@@ -244,6 +242,21 @@ def _apply_scaling(arr, hdr: Header):
     return out
 
 
+def _read_bintable_raw(fobj, hdr: Header):
+    """Read the raw bytes of a binary table (rows + heap) without decoding."""
+    naxis1 = int(hdr["NAXIS1"])
+    naxis2 = int(hdr["NAXIS2"])
+    pcount = int(hdr.get("PCOUNT", 0))
+    nbytes = naxis1 * naxis2 + pcount
+    raw = fobj.read(nbytes)
+    if len(raw) < nbytes:
+        raise EOFError("truncated FITS binary table")
+    pad = (-nbytes) % BLOCK
+    if pad:
+        fobj.seek(pad, 1)
+    return raw, naxis1, naxis2
+
+
 def open(path_or_url, mode: str = "readonly") -> HDUList:  # noqa: A001
     """Open a FITS file (local path or http(s) URL) fully into memory."""
     if isinstance(path_or_url, (bytes, bytearray)):
@@ -286,7 +299,16 @@ def open(path_or_url, mode: str = "readonly") -> HDUList:  # noqa: A001
         elif xtension == "IMAGE":
             hdus.append(ImageHDU(data=_read_data(fobj, hdr), header=hdr))
         elif xtension == "BINTABLE" and hdr.get("ZIMAGE"):
-            raise NotImplementedError(_TILE_COMPRESSED)
+            raw, naxis1, naxis2 = _read_bintable_raw(fobj, hdr)
+            from . import tile_compression
+
+            data = tile_compression.decompress_hdu(hdr, raw)
+            # carry the file's compression settings so a re-write keeps its
+            # format (ZCMPTYPE/ZQUANTIZ/NOISEBIT/tiles) instead of reverting
+            # to writer defaults
+            hdus.append(CompImageHDU(
+                data=data, header=hdr,
+                **tile_compression.hdu_settings_from_header(hdr)))
         else:
             # unknown extension: skip payload, keep header only
             naxis1 = int(hdr.get("NAXIS1", 0))
@@ -391,7 +413,17 @@ def write(path, hdus, overwrite: bool = True):
     blobs = []
     for i, hdu in enumerate(hdus):
         if isinstance(hdu, CompImageHDU):
-            raise NotImplementedError(_TILE_COMPRESSED)
+            from . import tile_compression
+
+            if i == 0:
+                # compressed image cannot be primary: emit empty primary first
+                blobs.append(_hdu_bytes(PrimaryHDU(), primary=True))
+            blobs.append(tile_compression.compress_hdu_bytes(
+                hdu,
+                quantize_level=getattr(hdu, "quantize_level", 16.0),
+                quantize_method=getattr(hdu, "quantize_method", "NO_DITHER"),
+                dither_seed=getattr(hdu, "dither_seed", 1),
+            ))
         else:
             blobs.append(_hdu_bytes(hdu, primary=(i == 0)))
     # atomic publish: a reader (or a resumed pipeline checking for finished

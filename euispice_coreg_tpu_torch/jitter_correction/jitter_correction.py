@@ -8,9 +8,11 @@ or align every frame of a movie against one fixed reference.  Each frame is
 one ``Alignment`` search on ``device``; with a CRVAL-only lag grid that is
 one FFT correlation-surface evaluation.
 
-Not ported yet (ROADMAP): the diagnostic figures (``path_figures`` raises
-before any file is read or written) and the frame-axis fleet over several
-cards (a ``mesh`` of more than one device raises).
+With ``path_figures`` each aligned frame's correlation figure (and with
+``plot_all_figures`` its before/after figure, resampled on ``device``) is
+saved there, as in the JAX package.  Not ported yet (ROADMAP): the
+frame-axis fleet over several cards (a ``mesh`` of more than one device
+raises).
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ import shutil
 import numpy as np
 
 from ..hdrshift.alignment import Alignment
-from ..hdrshift.results import PLOT_NOT_PORTED
 from ..utils.obs import Progress, logger
 from ..utils.torchcfg import check_single_device_mesh
 
@@ -63,8 +64,6 @@ def jitter_correction_imagers(
     always re-aligned); they are absent from the returned dict.
     ``device`` is passed to every ``Alignment``.
     """
-    if path_figures is not None:
-        raise NotImplementedError(PLOT_NOT_PORTED)
     check_single_device_mesh(mesh)
     if overlap == 0:
         raise ValueError(
@@ -125,6 +124,7 @@ def jitter_correction_imagers(
         for index_to_align in pending:
             date_to_align = dates[index_to_align][11:19].replace(":", "_")
             results = _align_hrieuv_with_hrieuv(
+                path_output_figures=path_figures,
                 large_fov_fits_path=path_reference,
                 large_fov_window=window_files_input,
                 small_fov_path=list_files_input[index_to_align],
@@ -252,8 +252,6 @@ def _align_hrieuv_with_hrieuv(
 ):
     """One imager-vs-imager alignment (reference
     ``jitter_correction.py:177-256``)."""
-    if path_output_figures is not None:
-        raise NotImplementedError(PLOT_NOT_PORTED)
     A = Alignment(
         large_fov_known_pointing=large_fov_fits_path,
         large_fov_window=large_fov_window,
@@ -268,15 +266,35 @@ def _align_hrieuv_with_hrieuv(
         **parameter_alignment,
     )
     if alignement_method == "carrington":
-        return A.align_using_carrington(
+        results = A.align_using_carrington(
             method="correlation",
             lonlims=lonlims, latlims=latlims, shape=shape,
             reference_date=reference_date,
             method_carrington_reprojection=method_carrington_reprojection,
         )
-    if alignement_method == "initial_carrington":
-        return A.align_using_initial_carrington(method="correlation")
-    if alignement_method == "helioprojective":
-        return A.align_using_helioprojective(
+    elif alignement_method == "initial_carrington":
+        results = A.align_using_initial_carrington(method="correlation")
+    elif alignement_method == "helioprojective":
+        results = A.align_using_helioprojective(
             method="correlation", fov_limits=fov_limits)
-    raise ValueError(f"unknown alignement_method: {alignement_method}")
+    else:
+        raise ValueError(f"unknown alignement_method: {alignement_method}")
+
+    if path_output_figures is not None:
+        date_ref = str(reference_date)[11:19].replace(":", "_")
+        results.plot_correlation(
+            path_save_figure=os.path.join(
+                path_output_figures, f"correlation_{date_to_align}_{date_ref}.pdf")
+        )
+        if do_plot_figure:
+            results.plot_co_alignment(
+                type_plot="successive_plot",
+                path_save_figure=os.path.join(
+                    path_output_figures,
+                    f"plot_co_alignment_{date_to_align}_{date_ref}.pdf"),
+                device=device,
+            )
+        from matplotlib import pyplot as plt
+
+        plt.close("all")
+    return results

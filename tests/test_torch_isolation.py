@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX, and a CUDA request without a
-card raises instead of running on the CPU."""
+"""The port stands alone: it imports no JAX (nor matplotlib until a figure
+is drawn), builds its codecs from its own sources into its own build
+directory, and a CUDA request without a card raises instead of running on
+the CPU."""
 import os
 import subprocess
 import sys
@@ -18,8 +20,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
-             or k == "euispice_coreg_tpu" or k.startswith("euispice_coreg_tpu."))
-print(len(names), bad)
+             or k == "euispice_coreg_tpu" or k.startswith("euispice_coreg_tpu.")
+             or k == "matplotlib" or k.startswith("matplotlib."))
+print(len(names), names, bad)
 """
 
 
@@ -28,9 +31,91 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
+    n, rest = out.stdout.split(" ", 1)
+    names, bad = rest.rsplit("] [", 1)
     assert int(n) >= 15
-    assert bad.strip() == "[]"
+    for mod in ("io.native", "io.tile_compression", "plot.plot",
+                "utils.util_compat"):
+        assert f"'euispice_coreg_tpu_torch.{mod}'" in names, mod
+    assert bad.strip() == "]"
+
+
+def test_chip_smoke_imports_no_jax_nor_matplotlib():
+    """chip_smoke.py, and every module of the port it reaches, import
+    neither JAX, the JAX package nor matplotlib (the card's machine has
+    none of them)."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module)
+    top = {name.split(".")[0] for name in imported}
+    assert not top & {"jax", "jaxlib", "euispice_coreg_tpu", "matplotlib"}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = ("import sys, chip_smoke; " + "; ".join(
+        f"import {m}" for m in sorted(imported)
+        if m.startswith("euispice_coreg_tpu_torch")) + "; print(sorted("
+        "k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'euispice_coreg_tpu', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _tree_state(root):
+    state = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            state[path] = os.stat(path).st_mtime_ns
+    return state
+
+
+def test_codec_build_stays_in_the_port(tmp_path):
+    """The port's codecs build from ``euispice_coreg_tpu_torch/io/native/``
+    with g++ into the build directory (here redirected to a temporary
+    one), under a name keyed by the sources and flags, and write nothing
+    under ``euispice_coreg_tpu/``."""
+    jax_pkg = os.path.join(REPO, "euispice_coreg_tpu")
+    before = _tree_state(jax_pkg)
+    code = f"""
+import numpy as np
+from euispice_coreg_tpu_torch.io import native
+native.BUILD_DIR = {str(tmp_path)!r}
+a = np.arange(-50, 50, dtype=np.int32)
+assert (native.rice_decode(native.rice_encode(a), a.size) == a).all()
+print(native.library_path())
+print(" ".join(native._SRCS))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib, srcs = out.stdout.strip().splitlines()
+    assert os.path.dirname(lib) == str(tmp_path) and os.path.isfile(lib)
+    assert os.listdir(tmp_path) == [os.path.basename(lib)]  # no temp left
+    native_dir = os.path.join(REPO, "euispice_coreg_tpu_torch", "io",
+                              "native")
+    assert [os.path.dirname(s) for s in srcs.split()] == [native_dir] * 3
+    assert _tree_state(jax_pkg) == before
+
+
+def test_codec_build_key_follows_sources(monkeypatch):
+    """The library name changes with a source or a flag, and the default
+    build directory is the port's git-ignored ``build/``."""
+    from euispice_coreg_tpu_torch.io import native
+
+    assert native.BUILD_DIR == os.path.join(REPO, "euispice_coreg_tpu_torch",
+                                            "build")
+    key = native.build_key()
+    monkeypatch.setattr(native, "GXX_FLAGS", native.GXX_FLAGS + ("-g",))
+    assert native.build_key() != key
 
 
 def _no_card():
@@ -98,31 +183,20 @@ def test_cuda_kernel_call_without_card_raises():
 
 
 def test_not_ported_parts_raise(tmp_path):
-    """Tile-compressed FITS HDUs, figures and the Carrington tile-FFT
-    evaluator raise NotImplementedError naming the ROADMAP."""
-    from euispice_coreg_tpu_torch import Alignment, AlignmentResults
+    """The Carrington tile-FFT evaluator and meshes of more than one device
+    raise NotImplementedError naming the ROADMAP; tile-compressed FITS and
+    figures are ported and no longer raise."""
+    from euispice_coreg_tpu_torch import Alignment
+    from euispice_coreg_tpu_torch.hdrshift import results
     from euispice_coreg_tpu_torch.io import fits
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fits.write(str(tmp_path / "c.fits"),
-                   [fits.CompImageHDU(data=np.zeros((4, 4), np.float32))])
-    # a ZIMAGE binary-table extension, as a tile-compressed file has
-    cards = [fits._make_card(k, v) for k, v in (
-        ("XTENSION", "BINTABLE"), ("BITPIX", 8), ("NAXIS", 2),
-        ("NAXIS1", 8), ("NAXIS2", 1), ("PCOUNT", 0), ("GCOUNT", 1),
-        ("ZIMAGE", True))]
-    blob = fits._hdu_bytes(fits.PrimaryHDU(), primary=True) \
-        + fits._serialize_header(cards) + b"\0" * 2880
-    with pytest.raises(NotImplementedError, match="tile-compressed"):
-        fits.open(blob)
-    res = AlignmentResults(np.random.default_rng(0).normal(size=(5, 5, 1, 1,
-                                                                 1)),
-                           np.arange(5.0), np.arange(5.0), None, None, None,
-                           "arcsec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        res.plot_correlation()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Alignment("a", "b", path_save_figure=str(tmp_path), device="cpu")
+    assert not hasattr(fits, "_TILE_COMPRESSED")
+    assert not hasattr(results, "PLOT_NOT_PORTED")
+    fits.write(str(tmp_path / "c.fits"),
+               [fits.CompImageHDU(data=np.zeros((4, 4), np.float32))])
+    assert isinstance(fits.open(str(tmp_path / "c.fits"))[1],
+                      fits.CompImageHDU)
+    Alignment("a", "b", path_save_figure=str(tmp_path), device="cpu")
     from euispice_coreg_tpu_torch.engine import carrington
 
     hdr = {"CRVAL1": 0.0, "CRVAL2": 0.0, "CDELT1": 2.0, "CDELT2": 2.0,

@@ -272,21 +272,26 @@ def test_jitter_correction_resume_matches_jax(tmp_path, monkeypatch):
 
 
 def test_figures_and_mesh_raise_before_any_output(tmp_path):
-    """``path_figures`` (plot/ not ported) and a mesh of two devices raise
-    ``NotImplementedError`` before any file is read or written."""
+    """A mesh of two devices raises ``NotImplementedError`` before any file
+    is read or written, with or without ``path_figures``; figures are
+    ported, so ``path_figures`` alone reaches the inputs (absent here:
+    ``FileNotFoundError``) and nothing is written either."""
     out = tmp_path / "out"
     os.makedirs(out)
     missing = [str(tmp_path / "absent_0.fits"), str(tmp_path / "absent_1.fits")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         jitter_correction_imagers(missing, str(out),
                                   path_figures=str(tmp_path), device="cpu")
     two = ["cpu", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         jitter_correction_imagers(missing, str(out), mesh=two, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        jitter_correction_imagers(missing, str(out), mesh=two,
+                                  path_figures=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         align_movie_to_reference(missing, missing[0], str(out), mesh=two,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         tjit._align_hrieuv_with_hrieuv(
             missing[0], 0, missing[1], {}, "09_00_00",
             path_output_figures=str(tmp_path), device="cpu")
