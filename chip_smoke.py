@@ -53,11 +53,35 @@ Phases (each prints its own lines; any failure exits nonzero):
                2.4"/px) over a 2048^2 Carrington grid, 121x121 CRVAL grid
                (0.5"): lag_search_mode="pallas" must launch K2 and recover
                +8" within 1" (argmax and fit), and the corrected CRVAL1
-               must read back; "auto" must take the block FFT or the K2
-               select path and recover the same.  Then the coarse grid at
-               the engine level (121x121 at 2", +24" injected, "auto"): K2,
-               +24" within 3".  Then the "sunpy" branch (121x121 0.5",
-               "auto"): +8" within 1".
+               must read back.  Then slice I (below).  Then "auto" must take
+               the block FFT or the select path, on the leg the routing
+               names (carrington._tile_fft_mode: tile-FFT on a card), and
+               recover the same; its warm API call is timed against
+               "pallas" (K2) in the same phase.  Then the coarse grid at the
+               engine level (121x121 at 2", +24" injected, "auto"): the
+               whole set passes tile-FFT's gate and declines against K2, no
+               hybrid, K2 scores every lag, +24" within 3"; timed against
+               "pallas", with the hybrid picker's time on its lags.  Then
+               the "sunpy" branch (121x121 0.5", "auto"): +8" within 1".
+   slice I  -- the Carrington tile-FFT evaluator (no kernel of ours: cuFFT,
+               gathers and elementwise torch).  (I1) slice C's call under
+               lag_search_mode="tile_fft": the whole lag set on tile-FFT
+               surfaces (the log must show that leg and nothing else, K2
+               launched 0 times), the tile plan, +8" within 1", argmax
+               equal to slice C's K2 hypercube, its peak within 1e-3 and
+               every value within 2e-3, first and warm API times and stage clocks, float32 and
+               float64 top-2 margins; CUDA-event times of the field build,
+               stage-1 forward transforms, products and inverse, and stage
+               2, with the bytes each must move and its kernel launches
+               (torch.profiler); the evaluator at tile_batch 1/2/4/8; peak
+               device memory.  (I3) the same operands under a budget of
+               half the tiles' boxes: 2 groups, within 1e-6 relative.
+               The auto decision: tile-FFT's select evaluation against
+               K2's on the same grid.  (I2) the coarse grid under
+               "tile_fft": which leg ran, +24" within 3".  (I4)
+               CarringtonTransform + Rectifier onto the 2048^2 grid,
+               float64 on the card, against reproject_to_carrington:
+               coordinates within 1e-9 px, images within 1e-6.
 7. slice D  -- public API, "auto", 21x21 CRVAL (1") x 3 CDELT1 x 3 CDELT2
                (0.5 % of the pixel) x 3 CROTA = 11907 candidates on A's
                pair: must take the block path (27 combos) and recover +8"
@@ -657,6 +681,7 @@ def log_stages(label, fn):
         torch.cuda.synchronize()
     log(f"[{label}] stages (ms): " + ", ".join(
         f"{k} {v * 1e3:.1f}" for k, v in st.items()))
+    return st
 
 
 def phase_precision(p_large, p_small, corr_default):
@@ -1107,7 +1132,8 @@ def check_recovery(label, lag, res, want, tol):
 
 
 def phase_slice_c(p_large, p_small, hdr, tmp_dir, engine_log):
-    """lag_search_mode="pallas": the select path on K2."""
+    """lag_search_mode="pallas": the select path on K2.  Returns the K2
+    hypercube and the stage clocks of a warm run."""
     import torch
 
     from euispice_coreg_tpu_torch.engine import quad_score
@@ -1149,31 +1175,430 @@ def phase_slice_c(p_large, p_small, hdr, tmp_dir, engine_log):
         f"grid, pallas: K2 {launched} launch(es), {rec}; first API call "
         f"{t_first:.3f} s, warm {t_warm:.3f} s; corrected CRVAL1 "
         f"{back['CRVAL1']:.4f}\" (true {true_crval1:.4f}\")")
-    log_stages("slice C", lambda: run("corr"))
+    return res.corr, log_stages("slice C", lambda: run("corr"))
+
+
+ROUTING_ORDER = ("auto", "pallas", "pallas", "auto")   # warm calls timed
 
 
 def phase_slice_c_auto(p_large, p_small, engine_log):
+    """"auto": the block FFT gate fails on this curved grid, so the select
+    path runs, on the leg that carrington._tile_fft_mode names for "auto"
+    on a card (tile-FFT surfaces); the log must show that leg.  Then warm
+    API calls of "auto" and of "pallas" (the select path on K2) in
+    ROUTING_ORDER: the routing's effect on this grid, in one run.  Returns
+    {mode: [seconds, ...]}."""
     import torch
 
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+
+    def run(mode, return_type="AlignmentResults"):
+        lag, A = carr_alignment(p_large, p_small, mode)
+        t0 = time.perf_counter()
+        out = A.align_using_carrington(reference_date=CARR_DATE,
+                                       return_type=return_type, **CARR_GRID)
+        torch.cuda.synchronize()
+        return lag, out, time.perf_counter() - t0
+
     engine_log.lines.clear()
-    lag, A = carr_alignment(p_large, p_small, "auto")
-    t0 = time.perf_counter()
-    res = A.align_using_carrington(reference_date=CARR_DATE, **CARR_GRID)
-    torch.cuda.synchronize()
-    t_api = time.perf_counter() - t0
+    lag, res, t_api = run("auto")
     paths = [m for m in ("engine path: carrington FFT fast",
                          "engine path: carrington linearized select")
              if m in engine_log.lines]
     if len(paths) != 1:
         raise AssertionError(f"slice C auto took neither the block FFT nor "
-                             f"the K2 select path: {engine_log.lines}")
+                             f"the select path: {engine_log.lines}")
+    legs = [m for m in engine_log.lines
+            if m.startswith("carrington select:")]
+    routing = carr._tile_fft_mode("auto", torch.device(DEVICE))
+    want = (f"carrington select: tile-FFT surfaces ({CARR_LAGS ** 2} lags)"
+            if routing else
+            f"carrington select: K2 quad kernel ({CARR_LAGS ** 2} lags)")
+    if paths[0].endswith("linearized select") and legs != [want]:
+        raise AssertionError(f"slice C auto: the select path took {legs}, "
+                             f"the routing names {want!r}")
     rec = check_recovery("slice C auto", lag, res, TRUE_SHIFT, 1.0)
-    log(f"[slice C auto] {paths[0]!r}, {rec}, API call {t_api:.3f} s")
+    warm = {"auto": [], "pallas": []}
+    for mode in ROUTING_ORDER:
+        warm[mode].append(run(mode, "corr")[2])
+    log(f"[slice C auto] {paths[0]!r} {legs}, routing "
+        f"_tile_fft_mode('auto', cuda) = {routing!r}, {rec}, first API call "
+        f"{t_api:.3f} s; warm API calls in the order "
+        f"{'/'.join(ROUTING_ORDER)}: auto "
+        + " / ".join(f"{t:.3f}" for t in warm["auto"]) + " s, pallas (K2) "
+        + " / ".join(f"{t:.3f}" for t in warm["pallas"]) + " s")
+    return warm
 
 
 def phase_coarse(engine_log):
     """bench.py run_carrington_coarse at the engine level: +24" injected,
-    121x121 CRVAL grid at 2", "auto"."""
+    121x121 CRVAL grid at 2", "auto": the whole set passes tile-FFT's gate
+    and declines against K2, so K2 scores every lag and no hybrid runs.
+    Warm engine calls of "auto" and "pallas" in ROUTING_ORDER, and the
+    hybrid picker's time on these lags (what the decline saves).  Returns
+    {mode: [seconds, ...], "hybrid_pick_ms": ms}."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+    from euispice_coreg_tpu_torch.engine import tile_fft
+
+    small = carr_render(carr_header(2.0, 150.0 + 24.0, 100.0))
+    hdr_given = carr_header(2.0, 150.0, 100.0)
+    lon_g, lat_g = carr.carrington_grid(CARR_GRID["lonlims"],
+                                        CARR_GRID["latlims"],
+                                        CARR_GRID["shape"])
+    small_d = torch.as_tensor(small, dtype=torch.float32, device=DEVICE)
+    ref_d = torch.as_tensor(carr_scene(lon_g, lat_g), dtype=torch.float32,
+                            device=DEVICE)
+    l1 = (np.arange(CARR_LAGS) - CARR_LAGS // 2) * COARSE_STEP / 3600.0
+
+    def run(mode="auto"):
+        t0 = time.perf_counter()
+        out = carr.evaluate_lag_grid_carrington(
+            small_d, ref_d, hdr_given, CARR_GRID["lonlims"],
+            CARR_GRID["latlims"], CARR_GRID["shape"], l1, l1, [0.0], [0.0],
+            [0.0], d_solar_r=1.004, reference_date=CARR_DATE,
+            rate_wave="171", order=2, device=DEVICE, lag_mode=mode)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    engine_log.lines.clear()
+    with record_calls(tile_fft, "evaluate_select_tile_fft") as calls:
+        corr, t_first = run()
+    # "auto": the whole set passes the gate, its plan declines against K2
+    # (the card's cost model, tile_fft.plan_tiles), and no hybrid follows
+    want = ("carrington tile-FFT: the whole set passed the gate and was "
+            "declined against K2, no hybrid",
+            f"carrington select: K2 quad kernel ({CARR_LAGS ** 2} lags)")
+    if not all(m in engine_log.lines for m in want) or len(calls) != 1 \
+            or any("screen" in m for m in engine_log.lines):
+        raise AssertionError(f"coarse run did not go from the declined "
+                             f"whole-set plan to K2: {engine_log.lines}")
+    log("[coarse] auto: " + "; ".join(
+        m for m in engine_log.lines if m.startswith("tile-FFT declined")
+        or m.startswith("carrington tile-FFT")))
+    mi = np.unravel_index(np.nanargmax(corr), corr.shape)
+    got = l1[mi[0]] * 3600.0
+    if abs(got - 24.0) >= 3.0:
+        raise AssertionError(f"coarse run missed +24\": {got}")
+    warm = {"auto": [], "pallas": []}
+    for mode in ROUTING_ORDER:
+        warm[mode].append(run(mode)[1])
+    # the hybrid picker on these lags, as "auto" ran it before the decline
+    # above skipped it
+    (coeffs, *_), kw = calls[0]
+    pick_ms, hyb = host_ms(lambda: tile_fft.pick_tile_shape_hybrid(
+        coeffs, kw["h"], kw["w"], kw["scale_det_per_grid"],
+        order_hint=kw["order"], compute_dtype=kw["compute_dtype"],
+        vs_k2=True))
+    log(f"[coarse] {N}^2 grid, {CARR_LAGS}^2 at {COARSE_STEP}\", auto -> K2: "
+        f"argmax {got:+.1f}\" / {l1[mi[1]] * 3600.0:+.1f}\", engine call "
+        f"first {t_first:.3f} s; warm in the order "
+        f"{'/'.join(ROUTING_ORDER)}: auto "
+        + " / ".join(f"{t:.3f}" for t in warm["auto"]) + " s, pallas (K2) "
+        + " / ".join(f"{t:.3f}" for t in warm["pallas"]) + " s; hybrid "
+        f"picker (vs_k2) on these lags {pick_ms:.1f} ms, best of 3 (picked "
+        f"{'none' if hyb is None else hyb[0]})")
+    log_stages("coarse", run)
+    return {**warm, "hybrid_pick_ms": pick_ms}
+
+
+def phase_sunpy(p_large, p_small):
+    import torch
+
+    def run():
+        lag, A = carr_alignment(p_large, p_small, "auto")
+        res = A.align_using_carrington(method_carrington_reprojection="sunpy")
+        torch.cuda.synchronize()
+        return lag, res
+
+    t0 = time.perf_counter()
+    lag, res = run()
+    t_api = time.perf_counter() - t0
+    rec = check_recovery("sunpy", lag, res, TRUE_SHIFT, 1.0)
+    log(f"[sunpy] {N}^2, {CARR_LAGS}^2 CRVAL grid, auto: {rec}, API call "
+        f"{t_api:.3f} s")
+    log_stages("sunpy", run)
+
+
+# ---------------------------------------------------------------------------
+# slice I: the Carrington tile-FFT evaluator and its hybrid ("tile_fft"),
+# the transform framework
+# ---------------------------------------------------------------------------
+
+TILEFFT_BATCHES = (1, 2, 4, 8)   # tile_batch values timed on I1's operands
+TILEFFT_PEAK_TOL = 1e-3          # I1's peak against slice C's K2 peak
+TILEFFT_SURFACE_TOL = 2e-3       # I1 against K2 over the whole hypercube
+TILEFFT_GROUP_RTOL = 1e-6        # I3: grouped against single pass
+
+
+def tile_fft_leg(lines):
+    """The select path's tile-FFT leg as the engine logged it."""
+    legs = [m for m in lines if m.startswith("carrington select:")
+            or m.startswith("carrington tile-FFT gate failed")]
+    if any(m.startswith("carrington select: tile-FFT surfaces")
+           for m in legs) and len(legs) == 1:
+        return "whole set", legs
+    if any("hybrid tile-FFT" in m for m in legs):
+        return "hybrid", legs
+    return "K2", legs
+
+
+def tile_fft_stage_times(args, kwargs):
+    """CUDA-event times (ms) of the evaluator's device stages on the
+    operands of one engine call, its plan replayed stage by stage: the field
+    build (g and r fields, padded r frame), stage 1 per tile batch
+    (forward transforms, conjugate products, inverse cropped to the boxes)
+    and stage 2 (the per-lag readout).  Also the bytes each stage must move
+    (each input read once, each output written once) and, where
+    torch.profiler sees the card, its kernel launches."""
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import tile_fft
+
+    coeffs, warped, ref = args
+    order, h, w = kwargs["order"], kwargs["h"], kwargs["w"]
+    score = "pearson" if kwargs["method"] == "correlation" else "residus"
+    dt = warped.dtype
+    item = dt.itemsize
+    plan = tile_fft.plan_tiles(coeffs, order=order, h=h, w=w,
+                               scale_det_per_grid=kwargs["scale_det_per_grid"],
+                               compute_dtype=dt, device=warped.device)
+    n_surf, n_rf = tile_fft._plane_counts(order)
+    n_g = 3 if score == "pearson" else 6
+    coeffs_d = torch.as_tensor(coeffs, dtype=dt, device=warped.device)
+    o_tab_d = torch.as_tensor(plan.o_tab, device=warped.device)
+    ids = list(range(plan.n_tiles))
+    ids_d = torch.as_tensor(ids, device=warped.device)
+    chunks = [ids[i:i + plan.batch] for i in range(0, len(ids), plan.batch)]
+
+    def fields():
+        g, r = tile_fft._build_fields(warped, ref, order, score, plan.hp,
+                                      plan.wp)
+        return g, tile_fft._pad_r(r, plan.o_min, plan.o_max, plan.hp,
+                                  plan.wp)
+
+    g, r_pad = fields()
+    S = tile_fft._tiles_surfaces(g, r_pad, plan, ids, order, score)
+    steps = {}
+
+    def stage1():
+        marks = []
+        for c in chunks:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            G, R = tile_fft._tile_spectra(g, r_pad, plan, c)
+            ev[1].record()
+            P = tile_fft._products(G, R, order, score)
+            ev[2].record()
+            tile_fft._inverse(P, plan.my, plan.mx, plan.by, plan.bx) \
+                .contiguous()
+            ev[3].record()
+            marks.append(ev)
+        torch.cuda.synchronize()
+        for k, name in enumerate(("forward", "products", "inverse")):
+            steps[name] = sum(e[k].elapsed_time(e[k + 1]) for e in marks)
+
+    stage1()   # warm-up (cuFFT plans)
+    stage1()
+    ms = {"field build": cuda_ms(fields), **steps,
+          "stage 2": cuda_ms(lambda: tile_fft._combine_lags(
+              S, coeffs_d, o_tab_d, ids_d, order, plan))}
+    K = plan.mx // 2 + 1
+    tiles = plan.n_tiles
+    spec = tiles * (n_g + n_rf) * plan.my * K * 2 * item
+    prod = tiles * n_surf * plan.my * K * 2 * item
+    boxes = tiles * n_surf * plan.by * plan.bx * item
+    nbytes = {
+        "field build": (2 * h * w + n_g * plan.hp * plan.wp) * item
+        + r_pad.numel() * item,
+        "forward": tiles * (n_g * plan.th * plan.tw + n_rf * (
+            plan.th + plan.by - 1) * (plan.tw + plan.bx - 1)) * item + spec,
+        "products": spec + prod,
+        "inverse": prod + boxes,
+        "stage 2": boxes + coeffs_d.numel() * item + coeffs.shape[0] * 6 * item,
+    }
+    launches = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        calls = {"field build": fields,
+                 "forward": lambda: [tile_fft._tile_spectra(g, r_pad, plan, c)
+                                     for c in chunks],
+                 "stage 2": lambda: tile_fft._combine_lags(
+                     S, coeffs_d, o_tab_d, ids_d, order, plan)}
+        G, R = tile_fft._tile_spectra(g, r_pad, plan, chunks[0])
+        P = tile_fft._products(G, R, order, score)
+        calls["products"] = lambda: [tile_fft._products(G, R, order, score)
+                                     for _ in chunks]
+        calls["inverse"] = lambda: [tile_fft._inverse(
+            P, plan.my, plan.mx, plan.by, plan.bx).contiguous()
+            for _ in chunks]
+        for name, fn in calls.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+            launches[name] = n if n else "not measured"
+    except Exception as err:  # the profiler is optional here
+        log(f"[slice I] torch.profiler gave no kernel counts: {err!r}")
+    for name in ms:
+        log(f"[slice I] stage {name}: {ms[name]:.3f} ms, "
+            f"{nbytes[name] / 1e9:.3f} GB moved "
+            f"({nbytes[name] / (ms[name] * 1e-3) / 1e12:.2f} TB/s), "
+            f"launches {launches.get(name, 'not measured')}")
+    stage1_ms = steps["forward"] + steps["products"] + steps["inverse"]
+    elems = tiles * (n_surf + n_rf + 3) * plan.my * plan.mx
+    log(f"[slice I] stage 1 {stage1_ms:.3f} ms for {elems:.4e} plane "
+        f"elements: {elems / (stage1_ms * 1e-3):.4e} elements/s "
+        f"(tile_fft._EST_STAGE1_ELEMS_PER_S "
+        f"{tile_fft._EST_STAGE1_ELEMS_PER_S:.4e}); resident r stack "
+        f"{r_pad.numel() * item / 1e9:.3f} GB + boxes {boxes / 1e9:.3f} GB")
+    del S, g, r_pad
+    return plan, ms, nbytes, launches
+
+
+def phase_slice_i(p_large, p_small, k2_corr, k2_stages, k2_kernel_ms,
+                  engine_log):
+    """I1: align_using_carrington("fa") under lag_search_mode="tile_fft" on
+    slice C's pair and grid: the whole lag set on tile-FFT surfaces, +8"
+    within 1" (argmax and fit), argmax equal to slice C's K2 hypercube and
+    the peak within TILEFFT_PEAK_TOL, float32 and float64; the stage clocks
+    and the device stages; tile_batch timed; peak memory.  I3: the same
+    operands under a budget that forces two groups.  Returns the numbers
+    the auto decision and PERF.md read."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+    from euispice_coreg_tpu_torch.engine import quad_score, tile_fft
+
+    def run(dtype="float32", return_type="AlignmentResults"):
+        from euispice_coreg_tpu_torch import Alignment
+
+        lag = (np.arange(CARR_LAGS) - CARR_LAGS // 2) * CARR_STEP
+        A = Alignment(p_large, p_small, lag_crval1=lag, lag_crval2=lag,
+                      small_fov_window=0, large_fov_window=0,
+                      lag_search_mode="tile_fft", compute_dtype=dtype,
+                      device=DEVICE)
+        out = A.align_using_carrington(reference_date=CARR_DATE,
+                                       return_type=return_type, **CARR_GRID)
+        torch.cuda.synchronize()
+        return lag, out
+
+    engine_log.lines.clear()
+    quad_score.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with record_calls(tile_fft, "evaluate_select_tile_fft") as calls:
+        lag, res = run()
+    t_first = time.perf_counter() - t0
+    leg, legs = tile_fft_leg(engine_log.lines)
+    plan_line = [m for m in engine_log.lines if m.startswith("tile-FFT plan")]
+    if leg != "whole set" or quad_score.LAUNCHES or len(calls) != 1:
+        raise AssertionError(f"I1 did not run the whole-set tile-FFT leg: "
+                             f"{legs}, K2 launches {quad_score.LAUNCHES}")
+    rec = check_recovery("I1", lag, res, TRUE_SHIFT, 1.0)
+    corr = res.corr[..., 0]
+    mi, mi_k2 = (np.unravel_index(np.nanargmax(c), c.shape)
+                 for c in (corr, k2_corr[..., 0]))
+    d_peak = abs(float(np.nanmax(corr)) - float(np.nanmax(k2_corr)))
+    d_max = float(np.nanmax(np.abs(corr - k2_corr[..., 0])))
+    log(f"[slice I] I1 {N}^2 -> {N}^2 Carrington grid, {CARR_LAGS}^2 at "
+        f"{CARR_STEP}\", tile_fft: {legs[0]!r}; {plan_line[0]}; {rec}; "
+        f"argmax {mi[:2]} vs K2 {mi_k2[:2]}, peak |d| {d_peak:.3e} (tol "
+        f"{TILEFFT_PEAK_TOL:g}), max |d| over the hypercube {d_max:.3e} (tol "
+        f"{TILEFFT_SURFACE_TOL:g}); K2 launches {quad_score.LAUNCHES}")
+    if mi != mi_k2 or d_peak > TILEFFT_PEAK_TOL or d_max > TILEFFT_SURFACE_TOL:
+        raise AssertionError("I1 disagrees with slice C's K2 hypercube")
+    t0 = time.perf_counter()
+    run(return_type="corr")
+    t_warm = time.perf_counter() - t0
+    stages = log_stages("slice I1", lambda: run(return_type="corr"))
+    lag64, res64 = run("float64")
+    rec64 = check_recovery("I1 float64", lag64, res64, TRUE_SHIFT, 1.0)
+    same = (np.unravel_index(np.nanargmax(res64.corr), res64.corr.shape)
+            == np.unravel_index(np.nanargmax(res.corr), res.corr.shape))
+    log(f"[slice I] I1 API first {t_first:.3f} s, warm {t_warm:.3f} s; "
+        f"top-2 margin float32 {top2_margin(corr):.6e}, float64 "
+        f"{top2_margin(res64.corr):.6e} ({rec64}), argmax equal {same}, "
+        f"max |d| f32-f64 "
+        f"{float(np.nanmax(np.abs(res64.corr - res.corr))):.3e}; K2 (slice "
+        f"C) top-2 margin {top2_margin(k2_corr):.6e}")
+    if not same:
+        raise AssertionError("I1: float32 and float64 argmax differ")
+
+    args, kwargs = calls[0]
+    plan, stage_ms, stage_bytes, stage_launches = tile_fft_stage_times(
+        args, kwargs)
+
+    def evaluate(**kw):
+        return tile_fft.evaluate_select_tile_fft(*args, **{**kwargs, **kw})
+
+    batch_ms = {}
+    for b in TILEFFT_BATCHES:
+        batch_ms[b] = cuda_ms(lambda b=b: evaluate(tile_batch=b), repeat=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r_single = evaluate()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[slice I] evaluator ms by tile_batch "
+        + ", ".join(f"{b}: {v:.3f}" for b, v in batch_ms.items())
+        + f" (default {tile_fft.TILE_BATCH}); peak device memory above the "
+        f"operands {peak / 1e9:.3f} GB (budget "
+        f"{tile_fft.MEM_BUDGET_BYTES / 1e9:.1f} GB)")
+
+    # I3: a budget that holds the r stack and half the tiles' boxes
+    n_surf, n_rf = tile_fft._plane_counts(kwargs["order"])
+    item = args[1].dtype.itemsize
+    rpad = n_rf * (plan.hp + int(plan.o_max[1] - plan.o_min[1])) \
+        * (plan.wp + int(plan.o_max[0] - plan.o_min[0])) * item
+    bt = n_surf * plan.by * plan.bx * item
+    budget = rpad + max(1, plan.n_tiles // 2) * bt + 1
+    engine_log.lines.clear()
+    r_grouped = evaluate(mem_budget_bytes=budget)
+    groups = [m for m in engine_log.lines if m.startswith("tile-FFT plan")]
+    rel = float(np.nanmax(np.abs(r_grouped - r_single))
+                / np.nanmax(np.abs(r_single)))
+    rel_api = float(np.nanmax(np.abs(r_grouped - corr.ravel()))
+                    / np.nanmax(np.abs(r_single)))
+    log(f"[slice I] I3 budget {budget / 1e9:.3f} GB: {groups[0]}; grouped "
+        f"vs single pass {rel:.3e}, vs I1's hypercube {rel_api:.3e} relative "
+        f"(tol {TILEFFT_GROUP_RTOL:g})")
+    if ((plan.n_tiles > 1 and "1 group(s)" in groups[0])
+            or max(rel, rel_api) > TILEFFT_GROUP_RTOL):
+        raise AssertionError("I3: the grouped evaluation disagrees or did not "
+                             "group")
+
+    tile_s = stages["carrington tile-FFT select evaluation"]
+    stage1_ms = sum(stage_ms[k] for k in ("forward", "products", "inverse"))
+    k2_s = k2_stages["carrington K2 select evaluation"]
+    gate_eval = sum(stages.get(k, 0.0) for k in (
+        "carr_tilefft_gate_s", "carr_tilefft_hostprep_s",
+        "carr_tilefft_eval_s"))
+    log(f"[slice I] auto decision: tile-FFT select evaluation (gate + "
+        f"evaluation) {tile_s * 1e3:.1f} ms (stages {gate_eval * 1e3:.1f} "
+        f"ms) vs K2 select evaluation {k2_s * 1e3:.1f} ms on slice C's grid "
+        f"-> tile-FFT {'faster' if tile_s < k2_s else 'slower'}; "
+        f"carrington._tile_fft_mode('auto', cuda) = "
+        f"{carr._tile_fft_mode('auto', torch.device(DEVICE))!r}; "
+        f"K2 kernel {k2_kernel_ms:.3f} ms at {CARR_LAGS ** 2} lags = "
+        f"{k2_kernel_ms * 1e-3 / CARR_LAGS ** 2:.3e} s a lag at {N}^2 "
+        f"(tile_fft._EST_PALLAS_S_PER_LAG "
+        f"{tile_fft._EST_PALLAS_S_PER_LAG:.3e}); "
+        f"select minus stage 1 {tile_s * 1e3 - stage1_ms:.1f} ms "
+        f"(_EST_SELECT_OVERHEAD_S {tile_fft._EST_SELECT_OVERHEAD_S})")
+    return {"first_s": t_first, "warm_s": t_warm, "tile_s": tile_s,
+            "k2_s": k2_s, "stages": stage_ms, "bytes": stage_bytes,
+            "launches": stage_launches, "batch_ms": batch_ms, "peak": peak}
+
+
+def phase_slice_i_coarse(engine_log):
+    """I2: the coarse grid (121x121 at 2", +24" injected) at engine level
+    under "tile_fft": prints which leg ran (whole set, hybrid with its lag
+    counts, or K2) and recovers +24" within 3"."""
     import numpy as np
     import torch
 
@@ -1194,7 +1619,7 @@ def phase_coarse(engine_log):
             small_d, ref_d, hdr_given, CARR_GRID["lonlims"],
             CARR_GRID["latlims"], CARR_GRID["shape"], l1, l1, [0.0], [0.0],
             [0.0], d_solar_r=1.004, reference_date=CARR_DATE,
-            rate_wave="171", order=2, device=DEVICE, lag_mode="auto")
+            rate_wave="171", order=2, device=DEVICE, lag_mode="tile_fft")
         torch.cuda.synchronize()
         return out
 
@@ -1202,38 +1627,99 @@ def phase_coarse(engine_log):
     t0 = time.perf_counter()
     corr = run()
     t_first = time.perf_counter() - t0
-    if f"carrington select: K2 quad kernel ({CARR_LAGS ** 2} lags)" \
-            not in engine_log.lines:
-        raise AssertionError(f"coarse run did not take K2: {engine_log.lines}")
+    leg, legs = tile_fft_leg(engine_log.lines)
+    notes = [m for m in engine_log.lines if "screen" in m
+             or m.startswith("tile-FFT declined")
+             or m.startswith("tile-FFT plan")]
     mi = np.unravel_index(np.nanargmax(corr), corr.shape)
     got = l1[mi[0]] * 3600.0
+    log(f"[slice I] I2 coarse {CARR_LAGS}^2 at {COARSE_STEP}\", tile_fft: "
+        f"leg {leg} {legs}; {notes[:3]}; argmax {got:+.1f}\" / "
+        f"{l1[mi[1]] * 3600.0:+.1f}\", engine call first {t_first:.3f} s")
     if abs(got - 24.0) >= 3.0:
-        raise AssertionError(f"coarse run missed +24\": {got}")
+        raise AssertionError(f"I2 missed +24\": {got}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run()
-    t_warm = time.perf_counter() - t0
-    log(f"[coarse] {N}^2 grid, {CARR_LAGS}^2 at {COARSE_STEP}\", auto -> K2: argmax "
-        f"{got:+.1f}\" / {l1[mi[1]] * 3600.0:+.1f}\", engine call first "
-        f"{t_first:.3f} s, warm {t_warm:.3f} s")
-    log_stages("coarse", run)
+    log_stages("slice I2", run)
+    log(f"[slice I] I2 warm (the stage run) {time.perf_counter() - t0:.3f} "
+        f"s, peak device memory above the operands "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
+    return leg
 
 
-def phase_sunpy(p_large, p_small):
+def phase_slice_i_transforms(p_small):
+    """I4: CarringtonTransform + Rectifier take slice C's small image onto
+    its 2048^2 grid, float64 on the card, against
+    carrington.reproject_to_carrington on the same device: pixel
+    coordinates (host numpy, torch on the card, the engine's device
+    projection) within 1e-9 px, sampled images within 1e-6."""
+    import numpy as np
     import torch
 
-    def run():
-        lag, A = carr_alignment(p_large, p_small, "auto")
-        res = A.align_using_carrington(method_carrington_reprojection="sunpy")
-        torch.cuda.synchronize()
-        return lag, res
+    from euispice_coreg_tpu_torch.core import transforms
+    from euispice_coreg_tpu_torch.engine import carrington as carr
+    from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.utils import timeutils
 
+    hdu = fits.open(p_small)[0]
+    data, hdr = np.asarray(hdu.data, dtype=np.float64), hdu.header
+    lonlims, latlims, shape = (CARR_GRID["lonlims"], CARR_GRID["latlims"],
+                               CARR_GRID["shape"])
+    t = transforms.CarringtonTransform(hdr, radius_correction=1.004,
+                                       reference_date=CARR_DATE,
+                                       rate_wave="171")
+    rect = transforms.Rectifier(t)
     t0 = time.perf_counter()
-    lag, res = run()
-    t_api = time.perf_counter() - t0
-    rec = check_recovery("sunpy", lag, res, TRUE_SHIFT, 1.0)
-    log(f"[sunpy] {N}^2, {CARR_LAGS}^2 CRVAL grid, auto: {rec}, API call "
-        f"{t_api:.3f} s")
-    log_stages("sunpy", run)
+    host = rect.coordinates(shape, lonlims, latlims)
+    t_host = time.perf_counter() - t0
+    lon, lat = (torch.as_tensor(a, device=DEVICE) for a in rect._coords)
+    on_card = t(lon, lat, xp=torch)
+    sc = carr.header_spherical_scalars(hdr, 1.004)
+
+    def s(v):
+        return torch.tensor(float(v), dtype=torch.float64, device=DEVICE)
+
+    delta = timeutils.time_diff_days(str(hdr["DATE-OBS"]), CARR_DATE)
+    lon_rot = lon - carr.diff_rot_shift_deg(lat, s(delta), "171", xp=torch)
+    geo = carr.observer_geometry(lon_rot, lat, s(sc["obs_lon"]),
+                                 s(sc["obs_lat"]), xp=torch)
+    x0, y0 = carr._pixel_origin(sc["crval1_arcsec"], sc["crval2_arcsec"],
+                                sc["crpix1"], sc["crpix2"], sc["roll"],
+                                sc["cdelt1_arcsec"], sc["cdelt2_arcsec"],
+                                xp=np)
+    engine = carr.spherical_project(*geo, *(s(v) for v in (
+        sc["dist"], sc["roll"], x0, y0, sc["cdelt1_arcsec"],
+        sc["cdelt2_arcsec"])))
+    d_card = d_engine = 0.0
+    for a, b, c in zip(host, on_card, engine):
+        b, c = b.cpu().numpy(), c.cpu().numpy()
+        if not (np.array_equal(np.isnan(a), np.isnan(b))
+                and np.array_equal(np.isnan(a), np.isnan(c))):
+            raise AssertionError("I4: NaN patterns of the coordinates differ")
+        d_card = max(d_card, float(np.nanmax(np.abs(a - b))))
+        d_engine = max(d_engine, float(np.nanmax(np.abs(a - c))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rect(data, shape, lonlims, latlims, order=2, dtype=np.float64,
+               device=DEVICE)
+    t_rect = time.perf_counter() - t0
+    want = carr.reproject_to_carrington(
+        data, hdr, lonlims, latlims, shape, d_solar_r=1.004,
+        reference_date=CARR_DATE, rate_wave="171", order=2, device=DEVICE,
+        compute_dtype="float64")
+    same_nan = np.array_equal(np.isnan(got), np.isnan(want))
+    d_img = float(np.nanmax(np.abs(got - want)))
+    log(f"[slice I] I4 transforms {shape[0]}x{shape[1]}: coordinates host "
+        f"vs card (xp=torch) {d_card:.3e} px, host vs the engine's "
+        f"projection {d_engine:.3e} px (tol 1e-9); Rectifier vs "
+        f"reproject_to_carrington {d_img:.3e} (tol 1e-6), NaN pattern equal "
+        f"{same_nan}; host coordinates {t_host:.3f} s, Rectifier call "
+        f"{t_rect:.3f} s")
+    if max(d_card, d_engine) > 1e-9 or d_img > 1e-6 or not same_nan:
+        raise AssertionError("I4: the transform framework disagrees with "
+                             "the Carrington engine")
 
 
 # ---------------------------------------------------------------------------
@@ -1466,19 +1952,24 @@ def phase_slice_e(p_small, c_small, tmp_dir, engine_log):
                              "engine path: carrington linearized select")
                  if m in engine_log.lines]
     k2_launches = quad_score.LAUNCHES
+    legs = sorted({m for m in engine_log.lines
+                   if m.startswith("carrington select:")})
     anchor = np.array(read_crval(c_paths[0]))
     crvals = np.array([read_crval(os.path.join(out, f"carr_movie_{k}.fits"))
                        for k in range(len(c_paths))])
     err = float(np.max(np.abs(crvals - anchor)))
     log(f"[slice E] jitter_correction_imagers carrington, 3 frames on a "
         f"{CARR_N}^2 Carrington grid, 41x41 lags at 0.5\": engine "
-        f"{paths_run}, K2 {k2_launches} launch(es), worst |corrected - "
-        f"anchor| {err:.3f}\" (tol 1\"), {t_carr * 1e3:.1f} ms per aligned "
-        f"frame")
-    k2_ran = paths_run == ["engine path: carrington linearized select"]
-    if len(paths_run) != 1 or not err < 1.0 or k2_ran != (k2_launches > 0):
-        raise AssertionError(f"slice E Carrington jitter: {paths_run}, K2 "
-                             f"{k2_launches} launch(es), {err}")
+        f"{paths_run} {legs}, K2 {k2_launches} launch(es), worst |corrected "
+        f"- anchor| {err:.3f}\" (tol 1\"), {t_carr * 1e3:.1f} ms per "
+        f"aligned frame")
+    # the select path scores on tile-FFT surfaces ("auto" on a card) or K2
+    k2_ran = any("K2" in m for m in legs)
+    select = paths_run == ["engine path: carrington linearized select"]
+    if (len(paths_run) != 1 or not err < 1.0 or k2_ran != (k2_launches > 0)
+            or select != bool(legs)):
+        raise AssertionError(f"slice E Carrington jitter: {paths_run}, "
+                             f"{legs}, K2 {k2_launches} launch(es), {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -2199,12 +2690,20 @@ def main():
         c_large, c_small, c_hdr = write_carr_pair(tmp_dir)
         warp_score.LAUNCHES = 0
         quad_score.LAUNCHES = 0
-        phase_slice_c(c_large, c_small, c_hdr, tmp_dir, engine_log)
+        k2_corr, k2_stages = phase_slice_c(c_large, c_small, c_hdr, tmp_dir,
+                                           engine_log)
         k2_launches = quad_score.LAUNCHES
         if k2_launches <= 0:
             raise AssertionError("K2 was not launched on the Carrington path")
-        phase_slice_c_auto(c_large, c_small, engine_log)
-        phase_coarse(engine_log)
+        # slice I: tile-FFT on slice C's grid (no kernel of ours: I1 sets
+        # K2's count to 0 and requires it to stay there), the coarse grid,
+        # the transforms; then slice C auto, routed by slice I's measurement
+        slice_i = phase_slice_i(c_large, c_small, k2_corr, k2_stages,
+                                k2_timings[1]["ms"], engine_log)
+        i2_leg = phase_slice_i_coarse(engine_log)
+        phase_slice_i_transforms(c_small)
+        c_auto = phase_slice_c_auto(c_large, c_small, engine_log)
+        coarse = phase_coarse(engine_log)
         phase_sunpy(c_large, c_small)
 
         # slices D-F: the block path, movies, pxlshift (each phase sets the
@@ -2225,7 +2724,14 @@ def main():
         f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 / slice G "
         f"lags " + " / ".join(f"{t['ms']:.3f}" for t in k1_timings)
         + " ms, K2 at 441 / 14641 / 14641 wide / slice G lags " + " / ".join(
-            f"{t['ms']:.3f}" for t in k2_timings) + " ms")
+            f"{t['ms']:.3f}" for t in k2_timings) + " ms; slice I tile-FFT "
+        f"select {slice_i['tile_s'] * 1e3:.1f} ms vs K2 select "
+        f"{slice_i['k2_s'] * 1e3:.1f} ms, I1 API warm "
+        f"{slice_i['warm_s']:.3f} s, I2 leg {i2_leg}; warm API auto / "
+        f"pallas: slice C {min(c_auto['auto']):.3f} / "
+        f"{min(c_auto['pallas']):.3f} s, coarse {min(coarse['auto']):.3f} / "
+        f"{min(coarse['pallas']):.3f} s (best of 2); coarse hybrid picker "
+        f"{coarse['hybrid_pick_ms']:.1f} ms")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked
     # sums), so library_ms is null

@@ -21,15 +21,20 @@ hypercube on the Carrington grid and picks the path:
   (:func:`_carrington_block_fast`, ``fast_corr``) when the conjugated CRVAL
   displacement is constant enough; else the quadratic-conjugation select
   path (:func:`_carrington_select`) scored by kernel K2
-  (:mod:`.quad_score`); else the per-lag gather;
+  (:mod:`.quad_score`); else the per-lag gather.  On a card, ``"auto"``
+  tries the tile-FFT evaluator and its hybrid before K2, each plan only
+  where the card's cost model promises that it beats K2;
 * ``"pallas"``: the select path with K2 directly;
+* ``"tile_fft"``: the select path on tile-FFT surfaces (:mod:`.tile_fft`)
+  over the whole lag set, else the per-lag hybrid (tile-FFT on the lags
+  that pass its gate), with K2 for every lag left;
 * ``"exact"``: the per-lag gather engine.
 
-Not ported: the tile-FFT evaluator and its hybrid (``"tile_fft"`` raises;
-ROADMAP), the XLA select evaluator with its residual buckets and caps (the
-TPU's gather-free sampler; K2's plain version is its exact counterpart
-here), the gather-free pre-warp sampler, the probe-fit caches and mesh
-sharding.
+Not ported: the XLA select evaluator with its residual buckets and caps
+(the TPU's gather-free sampler; K2's plain version is its exact counterpart
+here, and it takes the remainder that the JAX package's ``"tile_fft"``
+sends there), the gather-free pre-warp sampler, the probe-fit and hybrid
+caches and mesh sharding.
 """
 from __future__ import annotations
 
@@ -41,9 +46,7 @@ from ..core.header import get_crota
 from ..utils import timeutils, units
 from ..utils.obs import Progress, logger, stage, timed
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
-from . import fast_corr, lag_search, quad_score
-
-TILE_FFT_NOT_PORTED = "carrington tile-FFT: not yet ported, see ROADMAP"
+from . import fast_corr, lag_search, quad_score, tile_fft
 
 R_SUN_M = 6.957e8  # IAU 2015 nominal solar radius, meters (astropy R_sun)
 CARRINGTON_RATE = 14.18  # deg/day, rectify.py:292
@@ -501,7 +504,8 @@ def _probe_fit_products(combo, lonlims, latlims, dc1, dc2, delta_t,
 
 def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                        lonlims, latlims, shape, l1, l2, l3, l4, l5, *,
-                       order, method, device, compute_dtype, tol_px=0.05):
+                       order, method, device, compute_dtype, tol_px=0.05,
+                       tile_fft_mode=None):
     """Quadratic-conjugation select path for curved Carrington grids (where
     the FFT path's constant-displacement bound fails).
 
@@ -511,14 +515,20 @@ def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
     conjugated field is fitted per lag with a quadratic map over a 4x4 grid
     of exact probe conjugations; the fit residual gates the path (None, so
     the caller falls back to the per-lag gather, when it exceeds ``tol_px``
-    detector pixels).  Every lag is then scored by K2 on the pre-warped
-    image (double interpolation, like the helioprojective block fast path).
-    Returns the (n1..n5) hypercube, or None.
+    detector pixels).  With a ``tile_fft_mode`` (:func:`_tile_fft_mode`)
+    the lags are scored on tile-FFT surfaces
+    (:func:`tile_fft.evaluate_select_tile_fft`) over the whole set, else,
+    where that declines, on the lags that pass the gate one by one
+    (:func:`tile_fft.pick_tile_shape_hybrid`).  Every lag left is scored by
+    K2 on the pre-warped image (double interpolation, like the
+    helioprojective block fast path).  Returns the (n1..n5) hypercube, or
+    None.
     """
     if method not in quad_score.METHODS:
         return None
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    h, w = shape[1], shape[0]
     design = probe_design(shape)
     dlon_step = (lonlims[1] - lonlims[0]) / (shape[0] - 1)
     dlat_step = (latlims[1] - latlims[0]) / (shape[1] - 1)
@@ -556,15 +566,95 @@ def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                 with timed("carrington pre-warp (small -> grid)"):
                     warped_d = warp_to_grid(small_d, combo, lonlims, latlims,
                                             shape, delta_t, rate_wave, order)
-                with timed("carrington K2 select evaluation"):
-                    vals = quad_score.evaluate_select_quad(
-                        coeffs, warped_d, ref_d, order=order, method=method,
-                        device=dev, compute_dtype=dt)
-                if vals is None:
-                    return None
-                logger.info("carrington select: K2 quad kernel (%d lags)", L)
+                vals = np.zeros(L)
+                rem = np.arange(L)  # lags still to score
+                if tile_fft_mode is not None:
+                    rem = _select_tile_fft(coeffs, warped_d, ref_d, vals,
+                                           order=order, method=method, h=h,
+                                           w=w, scale=scale, device=dev,
+                                           compute_dtype=dt,
+                                           vs_k2=tile_fft_mode == "vs_k2")
+                if rem.size:
+                    with timed("carrington K2 select evaluation"):
+                        vals_k = quad_score.evaluate_select_quad(
+                            coeffs[rem], warped_d, ref_d, order=order,
+                            method=method, device=dev, compute_dtype=dt)
+                    if vals_k is None:
+                        return None
+                    logger.info("carrington select: K2 quad kernel (%d "
+                                "lags)", rem.size)
+                    vals[rem] = vals_k
                 out[:, :, i3, i4, i5] = vals.reshape(len(l1), len(l2))
     return out
+
+
+def _tile_fft_mode(lag_mode, device):
+    """How the select path uses tile-FFT: None (K2 only), ``"always"`` (an
+    explicit ``"tile_fft"``: the JAX package's gates) or ``"vs_k2"``
+    (``"auto"`` on a card: a plan must also promise to beat K2 on the same
+    lags, by the card's cost model of :mod:`.tile_fft`)."""
+    if lag_mode == "tile_fft":
+        return "always"
+    if lag_mode == "auto" and device.type == "cuda":
+        return "vs_k2"
+    return None
+
+
+def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
+                     scale, device, compute_dtype, vs_k2=False):
+    """The tile-FFT leg of the select path for one combo: the whole lag set
+    on tile-FFT surfaces, else the per-lag hybrid (the within-tile
+    deviation grows about linearly with |lag|, so the inner lags usually
+    pass the gate when the whole set fails).  With ``vs_k2`` both are held
+    to the card's cost model against K2 (:func:`tile_fft.plan_tiles`): no
+    gate runs where K2's estimate is under what tile-FFT spends around its
+    transforms, and no hybrid where the whole set passed the gate (its
+    shapes would then admit nearly every lag at about the cost of the plan
+    just declined).  Writes the scores it computes into ``vals`` and
+    returns the indices of the lags left for K2."""
+    L = coeffs.shape[0]
+    if vs_k2 and tile_fft.k2_is_cheaper(L, h, w):
+        logger.info("tile-FFT skipped: K2 est %.4f s for %d lags <= the "
+                    "%.3f s tile-FFT spends around its transforms",
+                    tile_fft._est_k2_seconds(L, h, w), L,
+                    tile_fft._EST_SELECT_OVERHEAD_S)
+        return np.arange(L)
+    with timed("carrington tile-FFT select evaluation"):
+        with stage("carr_tilefft_gate_s"):
+            pick = tile_fft.pick_tile_shape(coeffs, h, w, scale)
+        vals_t = None if pick is None else tile_fft.evaluate_select_tile_fft(
+            coeffs, warped_d, ref_d, order=order, h=h, w=w, method=method,
+            scale_det_per_grid=scale, compute_dtype=compute_dtype,
+            tile_size=pick[0], vs_k2=vs_k2, device=device)
+    if vals_t is not None:
+        logger.info("carrington select: tile-FFT surfaces (%d lags)", L)
+        vals[:] = vals_t
+        return np.arange(0)
+    if vs_k2 and pick is not None:
+        logger.info("carrington tile-FFT: the whole set passed the gate and "
+                    "was declined against K2, no hybrid")
+        return np.arange(L)
+    with stage("carr_tilefft_hybrid_pick_s"):
+        hyb = tile_fft.pick_tile_shape_hybrid(coeffs, h, w, scale,
+                                              order_hint=order,
+                                              compute_dtype=compute_dtype,
+                                              vs_k2=vs_k2)
+    if hyb is not None:
+        (th, tw), mask = hyb
+        with timed("carrington hybrid tile-FFT evaluation"):
+            vals_h = tile_fft.evaluate_select_tile_fft(
+                coeffs[mask], warped_d, ref_d, order=order, h=h, w=w,
+                method=method, compute_dtype=compute_dtype,
+                tile_size=(th, tw), device=device)
+        if vals_h is not None:
+            vals[mask] = vals_h
+            rem = np.nonzero(~mask)[0]
+            logger.info("carrington select: hybrid tile-FFT (%d lags, shape "
+                        "(%d, %d)) + K2 (%d lags)", L - rem.size, th, tw,
+                        rem.size)
+            return rem
+    logger.info("carrington tile-FFT gate failed, trying K2")
+    return np.arange(L)
 
 
 def _carrington_block_fast(small_img, ref_img, sc, delta_t, rate_wave,
@@ -704,10 +794,10 @@ def evaluate_lag_grid_carrington(
     :func:`reproject_to_carrington`).  ``lag_mode`` mirrors
     ``Alignment(lag_search_mode=...)``: ``"exact"`` forces the per-lag
     gather engine, ``"pallas"`` goes straight to the select path with K2,
-    ``"auto"``/``"fast"`` try the per-combo FFT path first, then the select
-    path, then the gather; ``"tile_fft"`` is not ported and raises."""
-    if lag_mode == "tile_fft":
-        raise NotImplementedError(TILE_FFT_NOT_PORTED)
+    ``"tile_fft"`` to the select path on tile-FFT surfaces, the hybrid and
+    K2 for the rest; ``"auto"``/``"fast"`` try the per-combo FFT path
+    first, then the select path (``"auto"`` on a card with tile-FFT first,
+    :func:`_tile_fft_mode`; never on the CPU), then the gather."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
 
@@ -736,7 +826,9 @@ def evaluate_lag_grid_carrington(
                     "linearized select path")
 
     if lag_mode != "exact" and order in (0, 1, 2):
-        fast = _carrington_select(small_img, ref_img, sc, **common)
+        fast = _carrington_select(small_img, ref_img, sc,
+                                  tile_fft_mode=_tile_fft_mode(lag_mode, dev),
+                                  **common)
         if fast is not None:
             logger.info("engine path: carrington linearized select")
             return fast

@@ -17,8 +17,7 @@ constructor and the same three entry points (``align_using_helioprojective``,
 ``parallelism`` and ``counts_cpu_max`` are accepted no-ops, as in the JAX
 package.  ``path_save_figure`` saves the same diagnostic figures as the JAX
 package (matplotlib, imported only then).  Not ported yet (ROADMAP.md):
-the Carrington tile-FFT evaluator (``lag_search_mode="tile_fft"`` on a
-Carrington grid) and multi-device meshes.
+multi-device meshes.
 """
 from __future__ import annotations
 
@@ -49,16 +48,19 @@ class Alignment:
       and ``residus_masked``, reprojection order 0 or 2), smaller ones and
       everything the block path declines the exact per-lag engine.  On a
       Carrington grid: the per-combo FFT path, else the
-      quadratic-conjugation select path on kernel K2, else the per-lag
-      gather;
+      quadratic-conjugation select path (on a CUDA device on tile-FFT
+      surfaces and the hybrid where they promise to beat K2, else on kernel
+      K2), else the per-lag gather;
     * "exact": always the per-lag engine (K1 on a CUDA device for
       correlation at order 0-2);
     * "fast": the FFT fast path on CRVAL-only grids, the block path on any
-      mixed grid (on a Carrington grid as "auto");
+      mixed grid (on a Carrington grid as "auto" without tile-FFT);
     * "pallas": the fused warp+score kernel K1; on a Carrington grid the
       select path on K2 directly;
-    * "tile_fft": on a Carrington grid not ported (raises
-      ``NotImplementedError``); elsewhere as "fast".
+    * "tile_fft": on a Carrington grid the select path on tile-FFT
+      surfaces (``engine.tile_fft``), else the per-lag hybrid (tile-FFT on
+      the lags that pass its gate), with K2 for every lag left; elsewhere
+      as "fast".
 
     Raw ``"residus"`` always takes the exact engine (its NaN propagation
     does not factorize over FFT surfaces).

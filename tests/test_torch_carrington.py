@@ -283,9 +283,21 @@ def test_raw_residus_takes_the_gather(pair, caplog):
     np.testing.assert_array_equal(got, want)
 
 
-def test_tile_fft_mode_is_not_ported(pair):
+def test_tile_fft_mode_is_not_ported(pair, caplog):
+    """``"tile_fft"`` is ported (the name is historical): on this fixture
+    both packages score all 25 lags on tile-FFT surfaces, float32 within
+    1e-4 of each other, argmax equal."""
     _, hl, ds, hs, ref = pair
-    with pytest.raises(NotImplementedError, match="tile-FFT"):
-        carr.evaluate_lag_grid_carrington(
-            ds, ref, port_header(hs), LONLIMS, LATLIMS, SHAPE, L1, L2, ONE,
-            ONE, ONE, device="cpu", lag_mode="tile_fft")
+    kw = dict(d_solar_r=1.004, reference_date=hl["DATE-OBS"],
+              rate_wave="171", lag_mode="tile_fft")
+    axes = (L1, L2, ONE, ONE, ONE)
+    want = jcarr.evaluate_lag_grid_carrington(ds, ref, hs, LONLIMS, LATLIMS,
+                                              SHAPE, *axes, **kw)
+    with caplog.at_level(logging.INFO, logger="euispice_coreg_tpu_torch"):
+        got = carr.evaluate_lag_grid_carrington(
+            ds, ref, port_header(hs), LONLIMS, LATLIMS, SHAPE, *axes,
+            device="cpu", **kw)
+    assert "carrington select: tile-FFT surfaces (25 lags)" in \
+        caplog.messages
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.nanargmax(got) == np.nanargmax(want)

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     names, bad = rest.rsplit("] [", 1)
     assert int(n) >= 15
     for mod in ("io.native", "io.tile_compression", "plot.plot",
-                "utils.util_compat"):
+                "utils.util_compat", "engine.tile_fft", "core.transforms",
+                "utils.matrix_transform"):
         assert f"'euispice_coreg_tpu_torch.{mod}'" in names, mod
     assert bad.strip() == "]"
 
@@ -183,9 +184,9 @@ def test_cuda_kernel_call_without_card_raises():
 
 
 def test_not_ported_parts_raise(tmp_path):
-    """The Carrington tile-FFT evaluator and meshes of more than one device
-    raise NotImplementedError naming the ROADMAP; tile-compressed FITS and
-    figures are ported and no longer raise."""
+    """Meshes of more than one device raise NotImplementedError naming the
+    ROADMAP; tile-compressed FITS, figures and the Carrington tile-FFT
+    evaluator are ported and no longer raise."""
     from euispice_coreg_tpu_torch import Alignment
     from euispice_coreg_tpu_torch.hdrshift import results
     from euispice_coreg_tpu_torch.io import fits
@@ -203,10 +204,11 @@ def test_not_ported_parts_raise(tmp_path):
            "CRPIX1": 8.0, "CRPIX2": 8.0, "CROTA": 0.0, "DSUN_OBS": 7.5e10,
            "CRLN_OBS": 120.0, "CRLT_OBS": 0.0}
     img = np.ones((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        carrington.evaluate_lag_grid_carrington(
-            img, img, hdr, (119.0, 121.0), (-1.0, 1.0), (16, 16), [0.0],
-            [0.0], [0.0], [0.0], [0.0], device="cpu", lag_mode="tile_fft")
+    assert not hasattr(carrington, "TILE_FFT_NOT_PORTED")
+    out = carrington.evaluate_lag_grid_carrington(
+        img, img, hdr, (119.0, 121.0), (-1.0, 1.0), (16, 16), [0.0],
+        [0.0], [0.0], [0.0], [0.0], device="cpu", lag_mode="tile_fft")
+    assert out.shape == (1, 1, 1, 1, 1)
     # a mesh of more than one device (frame-axis sharding, ROADMAP item 12)
     from euispice_coreg_tpu_torch.engine import fast_corr
     from euispice_coreg_tpu_torch.utils.torchcfg import \
@@ -218,3 +220,9 @@ def test_not_ported_parts_raise(tmp_path):
         fast_corr.evaluate_movie_from_displacements(
             img[None], img[None], np.zeros((1, 1, 2)), device="cpu",
             mesh=[torch.device("cpu")] * 2)
+    from euispice_coreg_tpu_torch.engine import tile_fft
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        tile_fft.evaluate_select_tile_fft(
+            np.zeros((1, 6, 2)), img, img, order=2, h=16, w=16,
+            device="cpu", mesh=[torch.device("cpu")] * 2)
