@@ -99,8 +99,8 @@ Phases (each prints its own lines; any failure exits nonzero):
 9. slice F  -- AlignmentPixels: a 3072^2 FSI-like frame at 4.44" and a
                1024^2 crop offset by (+7, -5) px, dx/dy in [-16, 16], drot
                in {-1, 0, +1} deg: argmax (7, -5, 0), r = 1 within 1e-6,
-               pearson_integer_shifts against a direct float64 window
-               Pearson at 3 offsets within 1e-6.
+               the rotation fleet (one device) against a direct float64
+               window Pearson at 3 offsets within 1e-6.
 10. slice G -- SPICE: an L2 cube of 192 raster steps x 1024 rows x 48
                spectral pixels (4" x 1.098", 60 s a step) rendered through
                its true pointing and handed over with a CRVAL that the lag
@@ -137,9 +137,27 @@ Phases (each prints its own lines; any failure exits nonzero):
                the corrected CRVAL1/2, data within one quantization step of
                the input's decode.  No figure is drawn: the card's machine
                has no matplotlib, and the script imports none.
-12. summary -- the kernels line (JSON, K1 and K2, with every timing against
-               its bound, slice G's among them), then
-               {"ok": true, "device": ...} as the last line.
+12. mesh    -- phase M, the sharded paths (a mesh is a list of devices,
+               one shard each): two shards on cuda:0, and every card when
+               there are several.  K1 on slice B's 1323 lags and K2 on
+               slice C's 14641 lags through their engine entry points:
+               one launch per shard (counted from 0 just before the call),
+               r within 1e-12 of the unsharded call, argmax equal, two
+               sharded calls bit-identical, the shards' launches timed
+               against the bound and held to the plain version at every
+               37th lag; the FFT path on slice A's 121^2 grid (within
+               1e-12); tile-FFT on I1's operands (argmax equal, peak within
+               1e-6 relative, peak memory); the movie fleet on slice E's 6
+               frames (its log line, shifts within 1e-3" of the per-frame
+               route, every frame within 1" of its jitter); the rotation
+               fleet on slice F (within 1e-12 of the fleet on one device);
+               the default route
+               (use_device_mesh=True: no mesh on one card, slice A's
+               hypercube bit-identical).  Each sharded call's warm time is
+               printed beside the unsharded call's.
+13. summary -- the kernels line (JSON, K1 and K2, with every timing against
+               its bound, slice G's and the two-shard launches among them),
+               then {"ok": true, "device": ...} as the last line.
 """
 from __future__ import annotations
 
@@ -2032,7 +2050,7 @@ def phase_slice_f(tmp_dir):
     mi = np.unravel_index(np.nanargmax(corr), corr.shape)
     best = (int(lag_d[mi[0]]), int(lag_d[mi[1]]), drot[mi[2]])
     r_true = float(corr[mi])
-    # pearson_integer_shifts against a direct float64 sliding window
+    # the rotation fleet against a direct float64 sliding window
     slc = A.slc_small_ref
     errs = []
     for i, j in ((mi[0], mi[1]), (0, 0), (30, 4)):
@@ -2044,7 +2062,7 @@ def phase_slice_f(tmp_dir):
         errs.append(abs(float(corr[i, j, 1]) - direct))
     log(f"[slice F] AlignmentPixels {FSI_N}^2 at 4.44\" vs a {FSI_CROP}^2 "
         f"crop at {FSI_SHIFT}, 33x33 shifts x 3 rotations: argmax {best}, "
-        f"r {r_true:.9f}, pearson_integer_shifts vs direct float64 at 3 "
+        f"r {r_true:.9f}, rotation fleet vs direct float64 at 3 "
         f"offsets {max(errs):.2e} (tol 1e-6); find_best_parameters (FITS "
         f"load included) {times[0]:.3f} s first, {times[1]:.3f} s second")
     if best != (dx, dy, 0.0) or abs(r_true - 1.0) > 1e-6 \
@@ -2656,12 +2674,261 @@ def phase_slice_h(p_large, p_small, tmp_dir, engine_log):
     return k1_launches
 
 
+# ---------------------------------------------------------------------------
+# phase M: multi-device sharding (a mesh of shards over a list of devices)
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 1e-12        # sharded against unsharded: r, hypercubes
+MESH_TILE_RTOL = 1e-6   # tile-FFT's float32 peak, sharded against unsharded
+MESH_MOVIE_TOL = 1e-3   # arcsec: fleet shifts against the per-frame route
+
+
+def mesh_meshes():
+    """The meshes phase M drives: two shards on the first card, and every
+    card when there are several."""
+    import torch
+
+    meshes = [("2 shards on cuda:0", ["cuda:0", "cuda:0"])]
+    n = torch.cuda.device_count()
+    if n > 1:
+        meshes.append((f"{n} cards", [f"cuda:{i}" for i in range(n)]))
+    return meshes
+
+
+def synced(fn):
+    """(result, seconds) of ``fn`` on the host clock, ending in a
+    synchronize of every card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return out, time.perf_counter() - t0
+
+
+def mesh_compare(label, run, mesh, check):
+    """One path unsharded and sharded: a sharded warm-up call (its result
+    held to the unsharded one by ``check``), then the unsharded call and
+    the sharded call again, both timed (warm), the two sharded results
+    bit-identical."""
+    import numpy as np
+
+    first, _ = synced(lambda: run(mesh))
+    want, t_u = synced(lambda: run(None))
+    again, t_s = synced(lambda: run(mesh))
+    detail = check(first, want)
+    same = np.array_equal(first, again, equal_nan=True)
+    log(f"[mesh] {label}: {detail}; two sharded calls bit-identical {same}; "
+        f"warm {t_u * 1e3:.1f} ms unsharded, {t_s * 1e3:.1f} ms sharded")
+    if not same:
+        raise AssertionError(f"{label}: two sharded calls differ")
+
+
+def hypercube_check(tol):
+    import numpy as np
+
+    def check(got, want):
+        err = float(np.nanmax(np.abs(got - want)))
+        same = (np.unravel_index(np.nanargmax(got), got.shape)
+                == np.unravel_index(np.nanargmax(want), want.shape))
+        if not (err <= tol and same
+                and np.array_equal(np.isnan(got), np.isnan(want))):
+            raise AssertionError(f"sharded max |d| {err:.3e} (tol {tol:g}), "
+                                 f"argmax equal {same}")
+        return f"max |d| {err:.3e} (tol {tol:g}), argmax equal {same}"
+    return check
+
+
+def mesh_kernel(label, kernel, module, wrapper, plain_fn, run, mesh):
+    """K1 or K2 through its engine entry point under ``mesh``: the launch
+    count (one per shard, counted from 0 just before the call), r against
+    the unsharded call, two sharded calls bit-identical; on the two-shard
+    mesh the shards' launches timed against the bound and held to the plain
+    version at every CHECK_STRIDE-th lag (:func:`time_against_bound`).
+    Returns the timing (with ``"shards"``) or None."""
+    import torch
+
+    module.LAUNCHES = 0
+    with record_calls(module, wrapper) as shards:
+        synced(lambda: run(mesh))
+    launched = module.LAUNCHES
+    lags = [a[-1].shape[0] for a, _ in shards]
+    log(f"[mesh] {label}: {launched} launch(es) for {len(mesh)} shard(s) "
+        f"of {lags} lags")
+    if launched != len(mesh) or len(shards) != len(mesh):
+        raise AssertionError(f"{label}: {launched} launches, expected one "
+                             f"per shard ({len(mesh)})")
+    mesh_compare(label, run, mesh, hypercube_check(MESH_TOL))
+    if len(set(mesh)) != 1:
+        return None
+    ops = shards[0][0][:-1]
+    kw = shards[0][1]
+    n_ref = int(torch.isfinite(ops[1]).sum())
+    table = torch.cat([a[-1] for a, _ in shards])
+    fn = getattr(module, wrapper)
+    timing = time_against_bound(
+        f"{label}, the {len(shards)} shards' launches", kernel,
+        lambda: torch.cat([fn(*a, **k) for a, k in shards]),
+        lambda t: plain_fn(*ops, t, **kw), (*ops, table), n_ref, repeat=3)
+    timing["shards"] = len(shards)
+    return timing
+
+
+def phase_mesh(calls, tmp_dir, card, engine_log):
+    """Phase M: every sharded path on a mesh of two shards on the card
+    (and on every card when there are several), each against its
+    unsharded call: K1 (slice B's 1323 lags), K2 (slice C's 14641 lags),
+    the FFT path (slice A's 121^2 grid), tile-FFT (I1's operands), the
+    movie fleet (slice E's 6 frames), the rotation fleet (slice F), and the
+    default route (``use_device_mesh=True``: no mesh on one card).
+    ``calls``: the engine calls of slices A, B, C and I1, as recorded.
+    Returns the two-shard K1 and K2 timings."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch import Alignment
+    from euispice_coreg_tpu_torch.engine import (carrington, lag_search,
+                                                 quad_score, tile_fft,
+                                                 warp_score)
+    from euispice_coreg_tpu_torch.jitter_correction import \
+        align_movie_to_reference
+    from euispice_coreg_tpu_torch.pxlshift import AlignmentPixels
+
+    t_phase = time.perf_counter()
+    log(f"[mesh] {card}; meshes: " + ", ".join(m for m, _ in mesh_meshes()))
+
+    def engine(fn, call):
+        args, kwargs = call
+        return lambda mesh: fn(*args, **{**kwargs, "mesh": mesh})
+
+    timings = {}
+    for name, mesh in mesh_meshes():
+        k1 = mesh_kernel(
+            f"K1 {name}, slice B (1323 lags, \"pallas\")", "K1 tan",
+            warp_score, "warp_score_sums",
+            warp_score.warp_score_sums_reference,
+            engine(lag_search.evaluate_lag_grid, calls["B"]), mesh)
+        k2 = mesh_kernel(
+            f"K2 {name}, slice C ({CARR_LAGS ** 2} lags, \"pallas\")", "K2",
+            quad_score, "quad_score_sums",
+            quad_score.quad_score_sums_reference,
+            engine(carrington.evaluate_lag_grid_carrington, calls["C"]),
+            mesh)
+        if k1 is not None:
+            timings["K1"], timings["K2"] = k1, k2
+        mesh_compare(f"FFT path {name}, slice A (121^2 grid)",
+                     engine(lag_search.evaluate_lag_grid, calls["A"]), mesh,
+                     hypercube_check(MESH_TOL))
+
+        # tile-FFT on I1's operands: float32 sums, added in another order
+        def tile_check(got, want):
+            rel = abs(float(np.nanmax(got)) - float(np.nanmax(want))) \
+                / abs(float(np.nanmax(want)))
+            same = int(np.nanargmax(got)) == int(np.nanargmax(want))
+            if not (same and rel <= MESH_TILE_RTOL):
+                raise AssertionError(f"tile-FFT sharded: argmax equal {same},"
+                                     f" peak {rel:.3e} relative")
+            return (f"argmax equal {same}, peak {rel:.3e} relative (tol "
+                    f"{MESH_TILE_RTOL:g}), max |d| "
+                    f"{float(np.nanmax(np.abs(got - want))):.3e}")
+
+        run_tiles = engine(tile_fft.evaluate_select_tile_fft, calls["I1"])
+        mesh_compare(f"tile-FFT {name}, I1's operands", run_tiles, mesh,
+                     tile_check)
+        peaks = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run_tiles(m)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        log(f"[mesh] tile-FFT {name}: peak memory on cuda:0 above the "
+            f"operands {peaks['unsharded']:.3f} GB unsharded, "
+            f"{peaks['sharded']:.3f} GB sharded")
+
+        # the movie fleet against the per-frame route (slice E's files)
+        p_ref = os.path.join(tmp_dir, "movie_ref.fits")
+        paths = [os.path.join(tmp_dir, f"movie_{k}.fits")
+                 for k in range(len(JITTER))]
+
+        def movie(m):
+            res = align_movie_to_reference(
+                paths, p_ref, window_files_input=0, reference_window=0,
+                device=DEVICE, mesh=m)
+            return np.array([res[k].shift_arcsec[:2] for k in sorted(res)])
+
+        def movie_check(got, want):
+            d = float(np.max(np.abs(got - want)))
+            fit = float(np.max(np.abs(got - np.array(JITTER))))
+            if not (d <= MESH_MOVIE_TOL and fit < 1.0):
+                raise AssertionError(f"movie fleet: |fleet - per-frame| {d},"
+                                     f" |fit - jitter| {fit}")
+            return (f"|fleet - per-frame| {d:.2e}\" (tol {MESH_MOVIE_TOL:g}"
+                    f"\"), worst |fit - jitter| {fit:.3f}\" (tol 1\")")
+
+        engine_log.lines.clear()
+        mesh_compare(f"movie fleet {name}, slice E ({len(paths)} frames)",
+                     movie, mesh, movie_check)
+        fleet = [m for m in engine_log.lines
+                 if m.startswith("fleet movie search")]
+        log(f"[mesh] movie fleet {name}: {fleet[:1]}")
+        if len(fleet) != 2:
+            raise AssertionError(f"the movie did not take the fleet route "
+                                 f"twice: {fleet}")
+
+        # the rotation fleet on the mesh against it on one device (slice F)
+        lag_d = np.arange(-16, 17)
+
+        def pixels(m):
+            A = AlignmentPixels(os.path.join(tmp_dir, "fsi.fits"), 0,
+                                os.path.join(tmp_dir, "crop.fits"), 0,
+                                device=DEVICE)
+            return A.find_best_parameters(lag_d, lag_d, [-1.0, 0.0, 1.0],
+                                          mesh=m)
+
+        mesh_compare(f"pixel shifts {name}, slice F (3 rotations)", pixels,
+                     mesh, hypercube_check(MESH_TOL))
+
+    # the default route: use_device_mesh=True builds no mesh on one card
+    lag = (np.arange(121) - 60) * 0.5
+    p_large, p_small = (os.path.join(tmp_dir, f) for f in ("large.fits",
+                                                           "small.fits"))
+    corr = {}
+    for flag in (True, False):
+        A = Alignment(p_large, p_small, lag_crval1=lag, lag_crval2=lag,
+                      small_fov_window=0, large_fov_window=0,
+                      use_device_mesh=flag, device=DEVICE)
+        if flag:
+            mesh_default = A.mesh
+        corr[flag] = A.align_using_helioprojective(return_type="corr")
+    n_cards = torch.cuda.device_count()
+    if n_cards == 1:
+        ok = mesh_default is None and np.array_equal(
+            corr[True], corr[False], equal_nan=True)
+    else:
+        ok = len(mesh_default) == n_cards and float(np.nanmax(np.abs(
+            corr[True] - corr[False]))) <= MESH_TOL
+    log(f"[mesh] default route, {n_cards} card(s): Alignment("
+        f"use_device_mesh=True).mesh = {mesh_default}; slice A's hypercube "
+        f"against use_device_mesh=False: "
+        f"{'bit-identical' if n_cards == 1 else 'within 1e-12'} {ok}")
+    if not ok:
+        raise AssertionError("the default route changed on this machine")
+    log(f"[mesh] phase M {time.perf_counter() - t_phase:.1f} s")
+    return timings
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, REPO)
     import torch
 
-    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+    from euispice_coreg_tpu_torch.engine import (carrington, lag_search,
+                                                 quad_score, tile_fft,
+                                                 warp_score)
 
     engine_log = EngineLog()
     port_logger = logging.getLogger("euispice_coreg_tpu_torch")
@@ -2678,8 +2945,15 @@ def main():
         # slices A and B: every launch count starts at 0 here
         warp_score.LAUNCHES = 0
         quad_score.LAUNCHES = 0
-        corr32 = phase_slice_a(p_large, p_small, engine_log)
-        launches = phase_slice_b(p_large, p_small, hdr, tmp_dir)
+        # the engine calls of slices A, B, C and I1 are recorded for phase M
+        # (the recorder passes every call through unchanged)
+        mesh_calls = {}
+        with record_calls(lag_search, "evaluate_lag_grid") as rec:
+            corr32 = phase_slice_a(p_large, p_small, engine_log)
+        mesh_calls["A"] = rec[0]
+        with record_calls(lag_search, "evaluate_lag_grid") as rec:
+            launches = phase_slice_b(p_large, p_small, hdr, tmp_dir)
+        mesh_calls["B"] = rec[0]
         main_launches = warp_score.LAUNCHES
         if main_launches <= 0 or launches <= 0:
             raise AssertionError("K1 was not launched on the main path")
@@ -2690,16 +2964,21 @@ def main():
         c_large, c_small, c_hdr = write_carr_pair(tmp_dir)
         warp_score.LAUNCHES = 0
         quad_score.LAUNCHES = 0
-        k2_corr, k2_stages = phase_slice_c(c_large, c_small, c_hdr, tmp_dir,
-                                           engine_log)
+        with record_calls(carrington, "evaluate_lag_grid_carrington") as rec:
+            k2_corr, k2_stages = phase_slice_c(c_large, c_small, c_hdr,
+                                               tmp_dir, engine_log)
+        mesh_calls["C"] = rec[0]
         k2_launches = quad_score.LAUNCHES
         if k2_launches <= 0:
             raise AssertionError("K2 was not launched on the Carrington path")
         # slice I: tile-FFT on slice C's grid (no kernel of ours: I1 sets
         # K2's count to 0 and requires it to stay there), the coarse grid,
         # the transforms; then slice C auto, routed by slice I's measurement
-        slice_i = phase_slice_i(c_large, c_small, k2_corr, k2_stages,
-                                k2_timings[1]["ms"], engine_log)
+        with record_calls(tile_fft, "evaluate_select_tile_fft") as rec:
+            slice_i = phase_slice_i(c_large, c_small, k2_corr, k2_stages,
+                                    k2_timings[1]["ms"], engine_log)
+        mesh_calls["I1"] = rec[0]
+        del rec
         i2_leg = phase_slice_i_coarse(engine_log)
         phase_slice_i_transforms(c_small)
         c_auto = phase_slice_c_auto(c_large, c_small, engine_log)
@@ -2717,13 +2996,19 @@ def main():
 
         # slice H: tile-compressed files (sets K1's count to 0 first)
         phase_slice_h(p_large, p_small, tmp_dir, engine_log)
-    k1_timings.append(g_timings["K1"])
-    k2_timings.append(g_timings["K2"])
+
+        # phase M: the sharded paths (K1's and K2's counts set to 0 just
+        # before each sharded call and read just after)
+        mesh_timings = phase_mesh(mesh_calls, tmp_dir, card, engine_log)
+        del mesh_calls
+    k1_timings += [g_timings["K1"], mesh_timings["K1"]]
+    k2_timings += [g_timings["K2"], mesh_timings["K2"]]
 
     log(f"[summary] card {card}; nvcc K1 {build_s['warp_score']:.2f} s, "
         f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 / slice G "
-        f"lags " + " / ".join(f"{t['ms']:.3f}" for t in k1_timings)
-        + " ms, K2 at 441 / 14641 / 14641 wide / slice G lags " + " / ".join(
+        f"/ 2 shards lags " + " / ".join(f"{t['ms']:.3f}" for t in k1_timings)
+        + " ms, K2 at 441 / 14641 / 14641 wide / slice G / 2 shards lags "
+        + " / ".join(
             f"{t['ms']:.3f}" for t in k2_timings) + " ms; slice I tile-FFT "
         f"select {slice_i['tile_s'] * 1e3:.1f} ms vs K2 select "
         f"{slice_i['k2_s'] * 1e3:.1f} ms, I1 API warm "

@@ -33,8 +33,10 @@ hypercube on the Carrington grid and picks the path:
 Not ported: the XLA select evaluator with its residual buckets and caps
 (the TPU's gather-free sampler; K2's plain version is its exact counterpart
 here, and it takes the remainder that the JAX package's ``"tile_fft"``
-sends there), the gather-free pre-warp sampler, the probe-fit and hybrid
-caches and mesh sharding.
+sends there), the gather-free pre-warp sampler and the probe-fit and hybrid
+caches.  ``mesh`` (a sequence of devices, :mod:`..utils.mesh`) is passed on
+to every evaluator: K2 and the gather split the lags, tile-FFT the tiles,
+the FFT path the surface planes; the pre-warp runs on ``device``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import torch
 
 from ..core import resample, score, wcs
 from ..core.header import get_crota
+from ..utils import mesh as mesh_mod
 from ..utils import timeutils, units
 from ..utils.obs import Progress, logger, stage, timed
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
@@ -505,7 +508,7 @@ def _probe_fit_products(combo, lonlims, latlims, dc1, dc2, delta_t,
 def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                        lonlims, latlims, shape, l1, l2, l3, l4, l5, *,
                        order, method, device, compute_dtype, tol_px=0.05,
-                       tile_fft_mode=None):
+                       tile_fft_mode=None, mesh=None):
     """Quadratic-conjugation select path for curved Carrington grids (where
     the FFT path's constant-displacement bound fails).
 
@@ -573,12 +576,14 @@ def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                                            order=order, method=method, h=h,
                                            w=w, scale=scale, device=dev,
                                            compute_dtype=dt,
-                                           vs_k2=tile_fft_mode == "vs_k2")
+                                           vs_k2=tile_fft_mode == "vs_k2",
+                                           mesh=mesh)
                 if rem.size:
                     with timed("carrington K2 select evaluation"):
                         vals_k = quad_score.evaluate_select_quad(
                             coeffs[rem], warped_d, ref_d, order=order,
-                            method=method, device=dev, compute_dtype=dt)
+                            method=method, device=dev, compute_dtype=dt,
+                            mesh=mesh)
                     if vals_k is None:
                         return None
                     logger.info("carrington select: K2 quad kernel (%d "
@@ -601,7 +606,7 @@ def _tile_fft_mode(lag_mode, device):
 
 
 def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
-                     scale, device, compute_dtype, vs_k2=False):
+                     scale, device, compute_dtype, vs_k2=False, mesh=None):
     """The tile-FFT leg of the select path for one combo: the whole lag set
     on tile-FFT surfaces, else the per-lag hybrid (the within-tile
     deviation grows about linearly with |lag|, so the inner lags usually
@@ -625,7 +630,7 @@ def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
         vals_t = None if pick is None else tile_fft.evaluate_select_tile_fft(
             coeffs, warped_d, ref_d, order=order, h=h, w=w, method=method,
             scale_det_per_grid=scale, compute_dtype=compute_dtype,
-            tile_size=pick[0], vs_k2=vs_k2, device=device)
+            tile_size=pick[0], vs_k2=vs_k2, device=device, mesh=mesh)
     if vals_t is not None:
         logger.info("carrington select: tile-FFT surfaces (%d lags)", L)
         vals[:] = vals_t
@@ -638,14 +643,14 @@ def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
         hyb = tile_fft.pick_tile_shape_hybrid(coeffs, h, w, scale,
                                               order_hint=order,
                                               compute_dtype=compute_dtype,
-                                              vs_k2=vs_k2)
+                                              vs_k2=vs_k2, mesh=mesh)
     if hyb is not None:
         (th, tw), mask = hyb
         with timed("carrington hybrid tile-FFT evaluation"):
             vals_h = tile_fft.evaluate_select_tile_fft(
                 coeffs[mask], warped_d, ref_d, order=order, h=h, w=w,
                 method=method, compute_dtype=compute_dtype,
-                tile_size=(th, tw), device=device)
+                tile_size=(th, tw), device=device, mesh=mesh)
         if vals_h is not None:
             vals[mask] = vals_h
             rem = np.nonzero(~mask)[0]
@@ -659,7 +664,7 @@ def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
 
 def _carrington_block_fast(small_img, ref_img, sc, delta_t, rate_wave,
                            lonlims, latlims, shape, l1, l2, l3, l4, l5, *,
-                           order, method, device, compute_dtype):
+                           order, method, device, compute_dtype, mesh=None):
     """FFT fast path in the Carrington frame.
 
     For each (cdelt1, cdelt2, crota) combo the small image is warped onto
@@ -722,7 +727,7 @@ def _carrington_block_fast(small_img, ref_img, sc, delta_t, rate_wave,
                                         shape, delta_t, rate_wave, order)
                 r = fast_corr.evaluate_from_displacements(
                     warped_d, ref_img, center, spread, order=order,
-                    device=dev, compute_dtype=dt, method=method)
+                    device=dev, compute_dtype=dt, method=method, mesh=mesh)
                 if r is None:
                     return None
                 out[:, :, i3, i4, i5] = r.reshape(len(l1), len(l2))
@@ -749,19 +754,31 @@ def _score_lags_carr(d, small_img, ref_img, geom, base, order, method):
 
 
 def _evaluate_flat_carr(lags, small_img, ref_img, geom, base, order, method,
-                        batch_size):
-    """Per-lag gather engine, ``batch_size`` lags at a time; (L,) float64
-    numpy out."""
+                        batch_size, devices):
+    """Per-lag gather engine, ``batch_size`` lags at a time, the lags
+    ((L, 5) host array) split over ``devices`` with every operand
+    replicated (the JAX ``shard_map`` over lags); (L,) float64 numpy out."""
     n_lags = lags.shape[0]
-    out = []
+    dt = small_img.dtype
+    ranges = mesh_mod.split(n_lags, devices)
+    smalls = mesh_mod.replicate(small_img, devices)
+    refs = mesh_mod.replicate(ref_img, devices)
+    geoms = [dict(zip(geom, g)) for g in zip(
+        *(mesh_mod.replicate(v, devices) for v in geom.values()))]
+    bases = [dict(zip(base, b)) for b in zip(
+        *(mesh_mod.replicate(v, devices) for v in base.values()))]
+    lags_d = [torch.as_tensor(lags[a:b], dtype=dt, device=d)
+              for (a, b), d in zip(ranges, devices)]
+    parts = {}
     prog = Progress(total=n_lags, label="carrington gather lag search",
                     enabled=n_lags > batch_size)
-    for s in range(0, n_lags, batch_size):
-        d = lags[s:s + batch_size]
-        out.append(_score_lags_carr(d, small_img, ref_img, geom, base, order,
-                                    method).to(torch.float64).cpu())
-        prog.step(d.shape[0])
-    return torch.cat(out).numpy()
+    for k, s, e in mesh_mod.round_robin(ranges, batch_size):
+        d = lags_d[k][s - ranges[k][0]:e - ranges[k][0]]
+        parts[s] = _score_lags_carr(d, smalls[k], refs[k], geoms[k],
+                                    bases[k], order,
+                                    method).to(torch.float64)
+        prog.step(e - s)
+    return mesh_mod.gather(parts).numpy()
 
 
 def evaluate_lag_grid_carrington(
@@ -786,6 +803,7 @@ def evaluate_lag_grid_carrington(
     compute_dtype="float32",
     batch_size=8,
     lag_mode="auto",
+    mesh=None,
 ):
     """Score the lag hypercube in the Carrington frame; returns
     (n1, n2, n3, n4, n5) float64 numpy.
@@ -797,9 +815,12 @@ def evaluate_lag_grid_carrington(
     ``"tile_fft"`` to the select path on tile-FFT surfaces, the hybrid and
     K2 for the rest; ``"auto"``/``"fast"`` try the per-combo FFT path
     first, then the select path (``"auto"`` on a card with tile-FFT first,
-    :func:`_tile_fft_mode`; never on the CPU), then the gather."""
+    :func:`_tile_fft_mode`; never on the CPU), then the gather.  ``mesh``:
+    a sequence of devices every evaluator splits its work over (None:
+    ``device`` alone)."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh)
 
     sc = header_spherical_scalars(hdr_small, d_solar_r)
     delta_t = 0.0
@@ -814,7 +835,7 @@ def evaluate_lag_grid_carrington(
     common = dict(delta_t=delta_t, rate_wave=rate_wave, lonlims=lonlims,
                   latlims=latlims, shape=shape, l1=l1, l2=l2, l3=l3, l4=l4,
                   l5=l5, order=order, method=method, device=dev,
-                  compute_dtype=dt)
+                  compute_dtype=dt, mesh=devices)
 
     if (lag_mode in ("auto", "fast") and order in (0, 2)
             and method in ("correlation", "residus_masked")):
@@ -826,9 +847,11 @@ def evaluate_lag_grid_carrington(
                     "linearized select path")
 
     if lag_mode != "exact" and order in (0, 1, 2):
-        fast = _carrington_select(small_img, ref_img, sc,
-                                  tile_fft_mode=_tile_fft_mode(lag_mode, dev),
-                                  **common)
+        fast = _carrington_select(
+            small_img, ref_img, sc,
+            tile_fft_mode=_tile_fft_mode(lag_mode,
+                                         devices[0] if devices else dev),
+            **common)
         if fast is not None:
             logger.info("engine path: carrington linearized select")
             return fast
@@ -852,6 +875,7 @@ def evaluate_lag_grid_carrington(
     base = {k: torch.tensor(v, dtype=dt, device=dev) for k, v in sc.items()
             if k not in ("obs_lon", "obs_lat")}
     logger.info("engine path: carrington per-lag gather")
-    out = _evaluate_flat_carr(put(lags), put(small_img), put(ref_img), geom,
-                              base, order, method, batch_size)
+    out = _evaluate_flat_carr(lags, put(small_img), put(ref_img), geom,
+                              base, order, method, batch_size,
+                              devices or (dev,))
     return out.reshape(out_shape)

@@ -31,8 +31,15 @@ border, at the 1e-5 level of the correlation values.
 Not carried over from the JAX package: the matmul-DFT of
 ``ops/precise_fft.py`` and its backend rule (the TPU's FFT is imprecise; see
 PERF.md for the card's float32/float64 measurement), the box-restricted
-inverse and fused readout (``_box_inverse``/``_readout_contract``), the memo
-caches and mesh sharding.
+inverse and fused readout (``_box_inverse``/``_readout_contract``) and the
+memo caches.
+
+Sharding (``mesh=``, a sequence of devices, :mod:`..utils.mesh`): one pair's
+surface planes are split over the devices, each building the fields from
+replicated images and running the transforms, products, inverses and
+readout of its own planes (the JAX ``surfaces_at_sharded``); a movie's frame
+axis is split over them, each device running its frames in sequence (the
+JAX ``_movie_eval_fn``).  The host finishes every score in float64.
 """
 from __future__ import annotations
 
@@ -40,9 +47,9 @@ import numpy as np
 import torch
 
 from ..core import wcs
+from ..utils import mesh as mesh_mod
 from ..utils import obs
-from ..utils.torchcfg import (check_single_device_mesh, resolve_device,
-                               resolve_dtype, to_tensor)
+from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import lag_search
 
 MAX_DISPLACEMENT_SPREAD_PX = 0.05  # fall back if curvature exceeds this
@@ -132,30 +139,24 @@ def _shift2(x, ty, tx, fill):
     return out
 
 
-def _build_surfaces(small, ref, order, m, score="pearson"):
-    """Frequency-domain cross-correlation products, shape (n_pairs, m, m//2+1)
-    (callers apply the inverse FFT, chunked).
+def _plane_runs(order, score):
+    """The product planes of :func:`_build_surfaces` in runs of one g field
+    against consecutive r fields: ``(g index, first r index, count)``."""
+    nt = len(_tap_offsets(order)) ** 2
+    npairs = nt * (nt + 1) // 2
+    g = (0, 1, 2, 0, 1, 0) if score == "pearson" else (0, 1, 2, 3, 4, 5)
+    r = ((0, 1), (0, 1), (0, 1), (1, nt), (1, nt), (1 + nt, npairs))
+    return [(gi, r0, n) for gi, (r0, n) in zip(g, r)]
 
-    ``score="pearson"`` layout (order 2, taps T = 3 offsets/axis, nt = 9,
-    npair = 45):
-      [0]                 XC(M,   A)
-      [1]                 XC(M a, A)
-      [2]                 XC(M a2,A)
-      [3 : 3+nt]          XC(M,   A small_t)
-      [3+nt : 3+2nt]      XC(M a, A small_t)
-      [3+2nt : 3+2nt+np]  XC(M,   A small_t small_u), (t<=u upper triangle)
 
-    ``score="residus"`` factorizes the masked residue std of
-    d = (a - b)/sqrt(a), centred by c = the masked mean of a (exact: d is
-    unchanged by subtracting c from both a and b).  With
-    F = [a finite & a > 0], a' = a - c, b' = b - c:
-      [0]                 XC(F,           A)      n
-      [1]                 XC(F a'/sqrt a, A)
-      [2]                 XC(F a'^2/a,    A)
-      [3 : 3+nt]          XC(F/sqrt a,    A small'_t)   (b'/sqrt a terms)
-      [3+nt : 3+2nt]      XC(F a'/a,      A small'_t)   (a'b'/a terms)
-      [3+2nt : 3+2nt+np]  XC(F/a,         A small'_t small'_u)
-    """
+def _n_surfaces(order, score="pearson"):
+    """Number of product planes (surfaces) of one pair."""
+    return sum(n for _g, _r0, n in _plane_runs(order, score))
+
+
+def _fields(small, ref, order, score):
+    """The g fields (reference side) and r fields (image side) of
+    :func:`_build_surfaces`, as two lists of (h, w) tensors."""
     taps = _tap_offsets(order)
     nt = len(taps) ** 2
 
@@ -199,44 +200,115 @@ def _build_surfaces(small, ref, order, m, score="pearson"):
     for i in range(nt):
         for j in range(i, nt):
             r_fields.append(Af * s_t[i] * s_t[j])
-
-    G = torch.fft.rfft2(torch.stack(g_list), s=(m, m))
-    R = torch.fft.rfft2(torch.stack(r_fields), s=(m, m))
-    del r_fields, s_t
-
-    npairs = nt * (nt + 1) // 2
-    if score == "pearson":
-        parts = [
-            torch.conj(G[0:1]) * R[0:1],            # n
-            torch.conj(G[1:2]) * R[0:1],            # Sa
-            torch.conj(G[2:3]) * R[0:1],            # Saa
-            torch.conj(G[0:1]) * R[1:1 + nt],       # Sb terms
-            torch.conj(G[1:2]) * R[1:1 + nt],       # Sab terms
-            torch.conj(G[0:1]) * R[1 + nt:1 + nt + npairs],  # Sbb terms
-        ]
-    else:
-        parts = [
-            torch.conj(G[0:1]) * R[0:1],            # n
-            torch.conj(G[1:2]) * R[0:1],            # sum F a'/sqrt(a)
-            torch.conj(G[2:3]) * R[0:1],            # sum F a'^2/a
-            torch.conj(G[3:4]) * R[1:1 + nt],       # b'/sqrt(a) terms
-            torch.conj(G[4:5]) * R[1:1 + nt],       # a'b'/a terms
-            torch.conj(G[5:6]) * R[1 + nt:1 + nt + npairs],  # b'^2/a terms
-        ]
-    return torch.cat(parts)
+    return g_list, r_fields
 
 
-def _surfaces_at(small, ref, iy, ix, order, m, score="pearson"):
-    """Surface values at the per-lag integer offsets: (n_surf, L).
+def _build_surfaces(small, ref, order, m, score="pearson", planes=None):
+    """Frequency-domain cross-correlation products, shape (n_planes, m,
+    m//2+1) (callers apply the inverse FFT, chunked): all of them, or the
+    product planes ``planes = (start, stop)`` only (a shard's share: only
+    the g and r fields those planes read are transformed).
+
+    ``score="pearson"`` layout (order 2, taps T = 3 offsets/axis, nt = 9,
+    npair = 45):
+      [0]                 XC(M,   A)
+      [1]                 XC(M a, A)
+      [2]                 XC(M a2,A)
+      [3 : 3+nt]          XC(M,   A small_t)
+      [3+nt : 3+2nt]      XC(M a, A small_t)
+      [3+2nt : 3+2nt+np]  XC(M,   A small_t small_u), (t<=u upper triangle)
+
+    ``score="residus"`` factorizes the masked residue std of
+    d = (a - b)/sqrt(a), centred by c = the masked mean of a (exact: d is
+    unchanged by subtracting c from both a and b).  With
+    F = [a finite & a > 0], a' = a - c, b' = b - c:
+      [0]                 XC(F,           A)      n
+      [1]                 XC(F a'/sqrt a, A)
+      [2]                 XC(F a'^2/a,    A)
+      [3 : 3+nt]          XC(F/sqrt a,    A small'_t)   (b'/sqrt a terms)
+      [3+nt : 3+2nt]      XC(F a'/a,      A small'_t)   (a'b'/a terms)
+      [3+2nt : 3+2nt+np]  XC(F/a,         A small'_t small'_u)
+    """
+    g_list, r_fields = _fields(small, ref, order, score)
+    a, b = (0, _n_surfaces(order, score)) if planes is None else planes
+    runs, p = [], 0  # (g, first r, last r + 1) of the planes in [a, b)
+    for gi, r0, n in _plane_runs(order, score):
+        lo, hi = max(a, p), min(b, p + n)
+        if lo < hi:
+            runs.append((gi, r0 + lo - p, r0 + hi - p))
+        p += n
+    need_g = sorted({gi for gi, _s, _e in runs})
+    need_r = sorted({i for _g, s0, e0 in runs for i in range(s0, e0)})
+    G = torch.fft.rfft2(torch.stack([g_list[i] for i in need_g]), s=(m, m))
+    R = torch.fft.rfft2(torch.stack([r_fields[i] for i in need_r]),
+                        s=(m, m))
+    del g_list, r_fields
+    gpos = {gi: k for k, gi in enumerate(need_g)}
+    rpos = {ri: k for k, ri in enumerate(need_r)}
+    return torch.cat([
+        torch.conj(G[gpos[gi]:gpos[gi] + 1]) * R[rpos[s0]:rpos[s0] + e0 - s0]
+        for gi, s0, e0 in runs])
+
+
+def _surfaces_at(small, ref, iy, ix, order, m, score="pearson", planes=None):
+    """Surface values at the per-lag integer offsets: (n_planes, L), of
+    every product plane or of ``planes = (start, stop)``.
 
     The inverse FFTs run in chunks of 8 so the full (n_surf, m, m) surface
     stack never materializes at once."""
-    prods = _build_surfaces(small, ref, order, m, score=score)
+    prods = _build_surfaces(small, ref, order, m, score=score, planes=planes)
     vals = []
     for k in range(0, prods.shape[0], 8):
         surf = torch.fft.irfft2(prods[k:k + 8], s=(m, m))
         vals.append(surf[:, iy, ix])
     return torch.cat(vals)
+
+
+def _surfaces_sharded(small, ref, iy, ix, order, m, score, devices):
+    """:func:`_surfaces_at` of one pair with the surface planes split over
+    ``devices`` (images and offsets replicated, each device reading out its
+    own planes): the (n_surf, L) values as a float64 CPU tensor."""
+    ranges = mesh_mod.split(_n_surfaces(order, score), devices)
+    smalls = mesh_mod.replicate(small, devices)
+    refs = mesh_mod.replicate(ref, devices)
+    iys = mesh_mod.replicate(iy, devices)
+    ixs = mesh_mod.replicate(ix, devices)
+    parts = {}
+    for k, (a, b) in enumerate(ranges):
+        if b > a:
+            parts[a] = _surfaces_at(smalls[k], refs[k], iys[k], ixs[k], order,
+                                    m, score=score, planes=(a, b))
+    return mesh_mod.gather(parts).to(torch.float64)
+
+
+def _frames_surfaces(frames, order, score, devices, dtype):
+    """Surface values of F pairs with the frame axis split over
+    ``devices``: ``frames`` is a list of ``(small, ref, iy, ix, m)`` (arrays
+    or tensors; an operand shared by several frames, the same object, is
+    placed once per device).  The images are placed in ``dtype`` and
+    surfaced in float64, as :func:`evaluate_from_displacements` does.
+    Every operand is placed before the first launch, each device runs its
+    frames in sequence, the shards taken in turn; returns the F (n_surf, L)
+    float64 CPU tensors."""
+    ranges = mesh_mod.split(len(frames), devices)
+    placed, ops = {}, []
+    for k, (a, b) in enumerate(ranges):
+        for f in range(a, b):
+            row = []
+            for x, dt in zip(frames[f][:4],
+                             (dtype, dtype, torch.int64, torch.int64)):
+                key = (id(x), devices[k])
+                if key not in placed:
+                    placed[key] = to_tensor(x, device=devices[k], dtype=dt)
+                row.append(placed[key])
+            ops.append(row)
+    parts = {}
+    for _k, f, _e in mesh_mod.round_robin(ranges, 1):
+        small, ref, iy, ix = ops[f]
+        parts[f] = _surfaces_at(small.to(torch.float64),
+                                ref.to(torch.float64), iy, ix, order,
+                                frames[f][4], score=score)
+    return [parts[f].to(torch.float64).cpu() for f in range(len(frames))]
 
 
 def evaluate_crval_grid_fast(
@@ -253,11 +325,13 @@ def evaluate_crval_grid_fast(
     device,
     compute_dtype="float32",
     method: str = "correlation",
+    mesh=None,
 ):
     """Scores (masked Pearson or residue) for a crval1 x crval2 lag grid.
 
     Returns (n1, n2) float64 array, or None if the constant-displacement
-    bound is violated (caller falls back to the general engine).
+    bound is violated (caller falls back to the general engine).  ``mesh``:
+    see :func:`evaluate_from_displacements`.
     """
     l1 = np.asarray(lag_crval1_deg, dtype=np.float64)
     l2 = np.asarray(lag_crval2_deg, dtype=np.float64)
@@ -268,17 +342,30 @@ def evaluate_crval_grid_fast(
         c, spread = displacement_per_lag(base_params, lags, lon, lat, kind)
     r = evaluate_from_displacements(
         small_img, ref_img, c, spread, order=order, device=device,
-        compute_dtype=compute_dtype, method=method,
+        compute_dtype=compute_dtype, method=method, mesh=mesh,
     )
     if r is None:
         return None
     return r.reshape(len(l1), len(l2))
 
 
+def _offsets_plan(c, h, w):
+    """Integer and fractional parts of the displacements ``c`` ((L, 2)) and
+    the transform size m for an h x w pair, or None when a shift reaches a
+    quarter of the frame."""
+    c = np.asarray(c, dtype=np.float64)
+    # stencil base convention must match the resampler: k = floor(c + 0.5)
+    dint = np.floor(c + 0.5).astype(np.int64)
+    dfrac = c - dint  # in [-0.5, 0.5)
+    if np.max(np.abs(dint)) + 2 >= min(h, w) // 4:
+        return None  # shifts too large relative to the frame
+    return dint, dfrac, _fft_size(max(h, w) + int(np.max(np.abs(dint))) + 4)
+
+
 def evaluate_from_displacements(small_img, ref_img, c, spread, *,
                                 order: int = 2, device,
                                 compute_dtype="float32",
-                                method: str = "correlation"):
+                                method: str = "correlation", mesh=None):
     """Scores for a list of constant pixel displacements ``c`` ((L, 2), x/y
     order) of the moving image relative to the comparison grid.
 
@@ -286,6 +373,9 @@ def evaluate_from_displacements(small_img, ref_img, c, spread, *,
     (masked residue std).  Raw ``"residus"`` is not factorizable faithfully
     (its NaN propagation needs every grid pixel valid) and always takes the
     exact per-lag engine.
+
+    ``mesh``: a sequence of devices; the surface planes are split over
+    them (:func:`_surfaces_sharded`).
 
     Returns the (L,) score vector, or None when the spread bound or the
     frame-size precondition fails.
@@ -296,18 +386,14 @@ def evaluate_from_displacements(small_img, ref_img, c, spread, *,
     if spread > MAX_DISPLACEMENT_SPREAD_PX:
         return None
 
-    c = np.asarray(c, dtype=np.float64)
-    # stencil base convention must match the resampler: k = floor(c + 0.5)
-    dint = np.floor(c + 0.5).astype(np.int64)
-    dfrac = c - dint  # in [-0.5, 0.5)
-
     h, w = np.shape(small_img)
-    if np.max(np.abs(dint)) + 2 >= min(h, w) // 4:
-        return None  # shifts too large relative to the frame
-
-    m = _fft_size(max(h, w) + int(np.max(np.abs(dint))) + 4)
+    plan = _offsets_plan(c, h, w)
+    if plan is None:
+        return None
+    dint, dfrac, m = plan
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh) or (dev,)
     small_d = to_tensor(small_img, device=dev, dtype=dt)
     ref_d = to_tensor(ref_img, device=dev, dtype=dt)
     iy = torch.as_tensor(np.mod(dint[:, 1], m), device=dev)
@@ -317,10 +403,9 @@ def evaluate_from_displacements(small_img, ref_img, c, spread, *,
         # float64 whatever the operands' compute dtype: on an H100, float32
         # cuFFT surfaces kept the headline pair's argmax but shrank its top-2
         # margin below the float64 build's (PERF.md).
-        S = _surfaces_at(small_d.to(torch.float64),
-                         ref_d.to(torch.float64), iy, ix, order, m,
-                         score=score)
-        S = S.to(torch.float64).cpu().numpy()
+        S = _surfaces_sharded(small_d.to(torch.float64),
+                              ref_d.to(torch.float64), iy, ix, order, m,
+                              score, devices).numpy()
     with obs.stage("fast_combine_s"):
         return _combine_scores(S, dfrac, order, score)
 
@@ -397,24 +482,34 @@ def pearson_integer_shifts(fixed_img, moving_img, dxs, dys, *, device):
     from the images in float64.  Both images must share a shape; NaNs define
     the masks.  Returns (len(dxs), len(dys)) float64.
     """
+    return pearson_integer_shifts_frames([fixed_img], moving_img, dxs, dys,
+                                         device=device)[0]
+
+
+def pearson_integer_shifts_frames(fixed_imgs, moving_img, dxs, dys, *,
+                                  device, mesh=None):
+    """:func:`pearson_integer_shifts` of F fixed images against one moving
+    image, the frames of one movie evaluation: the frame axis is split over
+    ``mesh`` (a sequence of devices; None: ``device`` alone), the moving
+    image placed once per device.  Returns (F, len(dxs), len(dys))
+    float64."""
     dxs = np.asarray(dxs, dtype=np.int64)
     dys = np.asarray(dys, dtype=np.int64)
-    h, w = np.shape(fixed_img)
+    h, w = np.shape(moving_img)
     m = _fft_size(max(h, w)
                   + int(max(np.max(np.abs(dxs)), np.max(np.abs(dys)))) + 2)
-    dev = resolve_device(device)
     gx, gy = np.meshgrid(dxs, dys, indexing="ij")
-    iy = torch.as_tensor(np.mod(gy.ravel(), m), device=dev)
-    ix = torch.as_tensor(np.mod(gx.ravel(), m), device=dev)
-    moving = to_tensor(moving_img, device=dev, dtype=torch.float64)
-    fixed = to_tensor(fixed_img, device=dev, dtype=torch.float64)
-    S = _surfaces_at(moving, fixed, iy, ix, 0, m).cpu().numpy()
-    n, Sa, Saa, Sb, Sab, Sbb = S
-    with np.errstate(invalid="ignore", divide="ignore"):
-        num = Sab - Sa * Sb / n
-        den = np.sqrt((Saa - Sa * Sa / n) * (Sbb - Sb * Sb / n))
-        r = num / den
-    return r.reshape(len(dxs), len(dys))
+    iy, ix = np.mod(gy.ravel(), m), np.mod(gx.ravel(), m)
+    devices = mesh_mod.resolve_mesh(mesh) or (resolve_device(device),)
+    frames = [(moving_img, fixed, iy, ix, m) for fixed in fixed_imgs]
+    out = []
+    for S in _frames_surfaces(frames, 0, "pearson", devices, torch.float64):
+        n, Sa, Saa, Sb, Sab, Sbb = S.numpy()
+        with np.errstate(invalid="ignore", divide="ignore"):
+            num = Sab - Sa * Sb / n
+            den = np.sqrt((Saa - Sa * Sa / n) * (Sbb - Sb * Sb / n))
+        out.append((num / den).reshape(len(dxs), len(dys)))
+    return np.stack(out)
 
 
 def evaluate_movie_from_displacements(smalls, refs, cs, *, order: int = 2,
@@ -429,15 +524,19 @@ def evaluate_movie_from_displacements(smalls, refs, cs, *, order: int = 2,
         host; an ``expand``-ed view is fine).
       refs:   (F, h, w) comparison canvases, numpy or a tensor.
       cs:     (F, L, 2) per-frame constant pixel displacements (x/y order).
-      mesh: ``None`` or one device; more raises ``NotImplementedError``.
+      mesh: a sequence of devices (None: ``device`` alone); the frame axis
+        is split over them in contiguous ranges, each device running its
+        frames one after another (the JAX ``shard_map`` over frames).
 
-    Frames run one after another on ``device``, each through
-    :func:`evaluate_from_displacements` (float64 surfaces, full chunked
-    inverse).  Returns the (F, L) float64 score array, or None when a
-    precondition fails for the stack or any frame (method, shapes, shifts
-    of a quarter frame or more).
+    Each frame computes what :func:`evaluate_from_displacements` computes
+    for it (float64 surfaces, full chunked inverse).  Returns the (F, L)
+    float64 score array, or None when a precondition fails for the stack or
+    any frame (method, shapes, shifts of a quarter frame or more), checked
+    on the host before any device work.
     """
-    check_single_device_mesh(mesh)
+    if method not in ("correlation", "residus_masked"):
+        return None
+    score = "pearson" if method == "correlation" else "residus"
     cs = np.asarray(cs, dtype=np.float64)
     if cs.ndim != 3 or cs.shape[-1] != 2:
         return None
@@ -445,14 +544,16 @@ def evaluate_movie_from_displacements(smalls, refs, cs, *, order: int = 2,
     if shape != tuple(np.shape(refs)) or len(shape) != 3 \
             or shape[0] != cs.shape[0] or shape[0] == 0:
         return None
-    out = []
-    for f in range(shape[0]):
-        # one frame at a time: a tensor stack (or an expand-ed view) is
-        # indexed in place, never made contiguous or copied whole
-        r = evaluate_from_displacements(
-            smalls[f], refs[f], cs[f], 0.0, order=order, device=device,
-            compute_dtype=compute_dtype, method=method)
-        if r is None:
-            return None
-        out.append(r)
-    return np.stack(out)
+    plans = [_offsets_plan(c, shape[1], shape[2]) for c in cs]
+    if any(p is None for p in plans):
+        return None
+    dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh) or (resolve_device(device),)
+    # one frame at a time: a tensor stack (or an expand-ed view) is indexed
+    # in place, never made contiguous or copied whole
+    frames = [(smalls[f], refs[f], np.mod(dint[:, 1], m),
+               np.mod(dint[:, 0], m), m)
+              for f, (dint, _dfrac, m) in enumerate(plans)]
+    S = _frames_surfaces(frames, order, score, devices, dt)
+    return np.stack([_combine_scores(s.numpy(), dfrac, order, score)
+                     for s, (_dint, dfrac, _m) in zip(S, plans)])

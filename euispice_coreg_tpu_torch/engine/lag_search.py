@@ -17,9 +17,11 @@ submap.  :func:`evaluate_lag_grid` picks the path:
   at order 0-2 (it computes exactly the per-lag gather's numbers), the torch
   per-lag gather in lag chunks for everything else.
 
-The JAX package's TPU workarounds are not carried over (the gather-free
-select and upsample samplers, chunk retries, probe and plan caches, mesh
-sharding).
+``mesh`` (a sequence of devices, :mod:`..utils.mesh`) is passed on to every
+path: K1 and the gather split the lags over the devices, the FFT paths the
+surface planes.  The JAX package's TPU workarounds are not carried over
+(the gather-free select and upsample samplers, chunk retries, probe and
+plan caches).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import resample, score, wcs
+from ..utils import mesh as mesh_mod
 from ..utils.obs import Progress, logger, stage
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import warp_score
@@ -74,24 +77,32 @@ def apply_lag_to_params(base: dict, d):
 
 
 def _evaluate_flat(lags, small, ref, lon, lat, base, order, method, kind,
-                   batch_size):
+                   batch_size, devices):
     """Exact per-lag engine: warp + score ``batch_size`` lags at a time
-    (the counterpart of the JAX ``_score_one_lag``/``_evaluate_flat``).
-    Returns an (L,) float64 numpy array."""
+    (the counterpart of the JAX ``_score_one_lag``/``_evaluate_flat``), the
+    lags split over ``devices`` (the JAX ``_sharded_evaluator``), the
+    operands replicated.  ``lags`` is an (L, 5) host array.  Returns an (L,)
+    float64 numpy array."""
     n_lags = lags.shape[0]
     fn = score.SCORE_FUNCTIONS[method]
-    out = []
+    dt = small.dtype
+    ranges = mesh_mod.split(n_lags, devices)
+    ops = [mesh_mod.replicate(t, devices) for t in (small, ref, lon, lat)]
+    lags_d = [torch.as_tensor(lags[a:b], dtype=dt, device=d)
+              for (a, b), d in zip(ranges, devices)]
+    parts = {}
     prog = Progress(total=n_lags, label="gather lag search",
                     enabled=n_lags > batch_size)
-    for s in range(0, n_lags, batch_size):
-        d = lags[s:s + batch_size]
-        params = {k: v[:, None, None]
-                  for k, v in apply_lag_to_params(base, d).items()}
-        x, y = wcs.world_to_pixel(params, lon, lat, kind=kind)
-        sampled = resample.sample_image(small, x, y, order=order)
-        out.append(fn(ref, sampled).to(torch.float64).cpu())
-        prog.step(d.shape[0])
-    return torch.cat(out).numpy()
+    for k, s, e in mesh_mod.round_robin(ranges, batch_size):
+        small_k, ref_k, lon_k, lat_k = (op[k] for op in ops)
+        d = lags_d[k][s - ranges[k][0]:e - ranges[k][0]]
+        params = {key: v[:, None, None]
+                  for key, v in apply_lag_to_params(base, d).items()}
+        x, y = wcs.world_to_pixel(params, lon_k, lat_k, kind=kind)
+        sampled = resample.sample_image(small_k, x, y, order=order)
+        parts[s] = fn(ref_k, sampled).to(torch.float64)
+        prog.step(e - s)
+    return mesh_mod.gather(parts).numpy()
 
 
 def evaluate_lag_grid(
@@ -113,13 +124,16 @@ def evaluate_lag_grid(
     compute_dtype="float32",
     batch_size: int = 8,
     allow_fast=True,
+    mesh=None,
 ) -> np.ndarray:
     """Score the full 5-D lag hypercube; returns shape
     (n_crval1, n_crval2, n_cdelt1, n_cdelt2, n_crota) as float64 numpy.
 
     All lag arrays and ``base_params`` (WCS dict plus ``crota``) are in
     DEGREES.  Images and coordinate grids may be numpy arrays or tensors;
-    they are moved to ``device`` in ``compute_dtype``.
+    they are moved to ``device`` in ``compute_dtype``.  ``mesh``: a sequence
+    of devices the work is split over (None: ``device`` alone); K1 runs on
+    the exact-engine route when the mesh's devices are CUDA devices.
     """
     l1 = np.asarray(lag_crval1, dtype=np.float64)
     l2 = np.asarray(lag_crval2, dtype=np.float64)
@@ -129,12 +143,14 @@ def evaluate_lag_grid(
     shape = (len(l1), len(l2), len(l3), len(l4), len(l5))
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh)
+    run_dev = devices[0] if devices else dev
 
     if allow_fast == "pallas":
         out = warp_score.evaluate_lag_grid_warp(
             small_img, ref_img, lon, lat, base_params,
             l1, l2, l3, l4, l5, order=order, method=method, kind=kind,
-            device=dev, compute_dtype=dt,
+            device=dev, compute_dtype=dt, mesh=devices,
         )
         if out is not None:
             logger.info("engine path: K1 fused warp+score kernel")
@@ -149,7 +165,7 @@ def evaluate_lag_grid(
             fast = fast_corr.evaluate_crval_grid_fast(
                 small_img, ref_img, lon, lat, base_params, l1, l2,
                 order=order, kind=kind, device=dev, compute_dtype=dt,
-                method=method,
+                method=method, mesh=devices,
             )
             if fast is not None:
                 logger.info("engine path: FFT fast (crval grid)")
@@ -160,17 +176,17 @@ def evaluate_lag_grid(
             fast = _evaluate_block_fast(
                 small_img, ref_img, lon, lat, base_params, l1, l2, l3, l4, l5,
                 order=order, kind=kind, device=dev, compute_dtype=dt,
-                method=method)
+                method=method, mesh=devices)
             if fast is not None:
                 logger.info("engine path: FFT block fast (mixed grid)")
                 return fast
 
-    if (dev.type == "cuda" and method == "correlation"
+    if (run_dev.type == "cuda" and method == "correlation"
             and order in (0, 1, 2)):
         out = warp_score.evaluate_lag_grid_warp(
             small_img, ref_img, lon, lat, base_params,
             l1, l2, l3, l4, l5, order=order, method=method, kind=kind,
-            device=dev, compute_dtype=dt,
+            device=dev, compute_dtype=dt, mesh=devices,
         )
         if out is not None:
             logger.info("engine path: per-lag exact (K1 kernel)")
@@ -180,12 +196,12 @@ def evaluate_lag_grid(
     lags = np.stack([g.ravel() for g in grids], axis=-1)  # (L, 5)
     logger.info("engine path: per-lag gather")
     out = _evaluate_flat(
-        torch.as_tensor(lags, dtype=dt, device=dev),
+        lags,
         to_tensor(small_img, device=dev, dtype=dt),
         to_tensor(ref_img, device=dev, dtype=dt),
         to_tensor(lon, device=dev, dtype=dt),
         to_tensor(lat, device=dev, dtype=dt),
-        base_params, order, method, kind, batch_size)
+        base_params, order, method, kind, batch_size, devices or (dev,))
     return out.reshape(shape)
 
 
@@ -219,7 +235,7 @@ def _warp_by_params(img, lon, lat, params, kind, order):
 
 def _evaluate_block_fast(small_img, ref_img, lon, lat, base_params,
                          l1, l2, l3, l4, l5, *, order, kind, device,
-                         compute_dtype, method="correlation"):
+                         compute_dtype, method="correlation", mesh=None):
     """Block fast path for mixed lag grids.
 
     For each (cdelt1, cdelt2, crota) combo the small image is warped once
@@ -227,7 +243,8 @@ def _evaluate_block_fast(small_img, ref_img, lon, lat, base_params,
     sub-grid then factorizes over FFT correlation surfaces as in
     :mod:`.fast_corr`, with every combo's displacements conjugated into the
     grid's pixel space in one host chain.  Combos run one after another,
-    one warp resident at a time.
+    one warp resident at a time, each combo's surface planes split over
+    ``mesh``.
 
     The spline interpolation is applied twice (pre-warp + per-lag tap
     stencil) where the exact engine interpolates once: a sub-percent
@@ -262,7 +279,7 @@ def _evaluate_block_fast(small_img, ref_img, lon, lat, base_params,
         warped = _warp_by_params(small_d, lon_d, lat_d, params, kind, order)
         vals = fast_corr.evaluate_from_displacements(
             warped, ref_d, cs[k], spreads[k], order=order, device=device,
-            compute_dtype=compute_dtype, method=method)
+            compute_dtype=compute_dtype, method=method, mesh=mesh)
         if vals is None:
             return None
         out[:, :, i3, i4, i5] = vals.reshape(len(l1), len(l2))

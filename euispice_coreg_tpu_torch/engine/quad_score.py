@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import resample
+from ..utils import mesh as mesh_mod
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import _build
 from .warp_score import (MAX_LAGS, PAD, build_tiles, launch_geometry,
@@ -203,7 +204,7 @@ def _launch(canvas, ref, table, *, pad, order, method):
 
 def evaluate_select_quad(coeffs, warped, ref_img, *, order,
                          method="correlation", device,
-                         compute_dtype="float32"):
+                         compute_dtype="float32", mesh=None):
     """Score ``L`` quadratic-displacement lags against ``ref_img``.
 
     ``coeffs``: (L, 6, 2) float64 maps ``[x, y, 1, x^2, y^2, x*y] ->
@@ -212,22 +213,38 @@ def evaluate_select_quad(coeffs, warped, ref_img, *, order,
     (arrays or tensors).  Returns (L,) float64 Pearson r or residue std, or
     None for what the kernel does not compute (another method or order, an
     image under 3 px a side, a reference of another shape).
+
+    ``mesh``: a sequence of devices (:mod:`..utils.mesh`); the lag axis is
+    split over them, the canvases replicated to each device, every shard
+    launched before the first is read back (the counterpart of the JAX
+    evaluator's ``shard_map`` over lags).
     """
     if method not in METHODS or order not in (0, 1, 2):
         return None
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh) or (dev,)
     warped_t = to_tensor(warped, device=dev, dtype=dt)
     ref_t = to_tensor(ref_img, device=dev, dtype=dt)
     h, w = warped_t.shape
     if ref_t.shape != warped_t.shape or min(h, w) <= PAD:
         return None
     canvas, ref_c = quad_canvases(warped_t, ref_t, method=method)
-    table = torch.as_tensor(coeff_table(coeffs), dtype=dt, device=dev)
-    sums = torch.cat([
-        quad_score_sums(canvas, ref_c, table[s:s + MAX_LAGS].contiguous(),
-                        pad=PAD, order=order, method=method)
-        for s in range(0, table.shape[0], MAX_LAGS)]).cpu().numpy()
+    table = coeff_table(coeffs)
+    ranges = mesh_mod.split(table.shape[0], devices)
+    canvases = mesh_mod.replicate(canvas, devices)
+    refs = mesh_mod.replicate(ref_c, devices)
+    # every upload before the first launch (a host-to-device copy waits for
+    # its device's queue)
+    tables = [torch.as_tensor(table[a:b], dtype=dt, device=d)
+              for (a, b), d in zip(ranges, devices)]
+    parts = {}
+    for k, s, e in mesh_mod.round_robin(ranges, MAX_LAGS):
+        a = ranges[k][0]
+        parts[s] = quad_score_sums(canvases[k], refs[k],
+                                   tables[k][s - a:e - a], pad=PAD,
+                                   order=order, method=method)
+    sums = mesh_mod.gather(parts).numpy()
     if method == "correlation":
         return pearson_from_sums(sums)
     return residus_from_sums(sums)

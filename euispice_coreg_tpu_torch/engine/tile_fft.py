@@ -33,10 +33,16 @@ readout.  No matmul is left (the quadratic field is evaluated term by
 term), so nothing here depends on the TF32 setting.  Not carried over: the
 real-folded partial-DFT matmuls and their precision setting (a TPU layer:
 ``irfft2`` plus a crop gives the same circular-correlation values), the
-one-hot readout, the memo caches of the gate and the bounds, the
+one-hot readout, the memo caches of the gate and the bounds and the
 environment variables (``tile_batch`` and ``mem_budget_bytes`` are keyword
-arguments) and the mesh branch (a mesh of more than one device raises,
-ROADMAP item 12).
+arguments).
+
+Sharding (``mesh=``, a sequence of devices, :mod:`..utils.mesh`): the tile
+axis is split over the devices, the fields replicated to each distinct
+device; each device scans its tiles group by group and the (L, 6) partial
+sums are added on the first device (the JAX ``psum``).  A device that holds
+several shards runs them in its own stream order, one group resident at a
+time.
 """
 from __future__ import annotations
 
@@ -46,9 +52,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import mesh as mesh_mod
 from ..utils.obs import logger, stage
-from ..utils.torchcfg import (check_single_device_mesh, resolve_device,
-                              resolve_dtype, to_tensor)
+from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 
 # Within-tile sampling-position tolerance, DETECTOR pixels (the JAX
 # package's value and calibration).
@@ -116,6 +122,15 @@ def _hbm_group_plan(order, by, bx, Htot, Wtot, itemsize, batch, budget):
     group = int((budget - rpad_bytes) // max(bt, 1))
     group -= group % max(batch, 1)
     return group, rpad_bytes, bt
+
+
+def _clamped_batch(tile_batch, n_tiles, mesh=None):
+    """Tiles per stage-1 step: ``tile_batch`` (default :data:`TILE_BATCH`)
+    clamped to the tiles one device scans (all of them, or its share of a
+    ``mesh``: a wider batch would only pad)."""
+    n = len(mesh) if mesh is not None else 1
+    return max(1, min(int(TILE_BATCH if tile_batch is None else tile_batch),
+                      -(-n_tiles // n)))
 
 
 def _est_stage1_seconds(n_tiles: int, n_planes: int, my: int, mx: int):
@@ -320,7 +335,7 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
                            max_tiles=_MAX_TILES, min_pass_frac=0.5,
                            order_hint=2, compute_dtype="float32",
                            tile_batch=None, mem_budget_bytes=None,
-                           vs_k2=False):
+                           vs_k2=False, mesh=None):
     """Per-lag gate for the hybrid Carrington path.
 
     Called when :func:`pick_tile_shape` rejected the FULL lag set: the
@@ -335,7 +350,8 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
     (the evaluator's guard) and the stage-1 screen (its estimated
     transforms must cost less than K2 on the passing lags, at least 0.25
     s; with ``vs_k2`` the card's cost model of :func:`plan_tiles`
-    instead)."""
+    instead).  With a ``mesh`` of several devices the screen clamps the
+    batch to a device's share of the tiles, as the evaluator does."""
     L = coeffs.shape[0]
     if L == 0:
         return None
@@ -389,8 +405,7 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
         o = np.floor(_quad_eval(cm, uu, vv) + 0.5)       # (Lm, 5, 2)
         span = (o.max(axis=0) - o.min(axis=0)).max(axis=0)  # (2,) x/y
         bx_e, by_e = int(span[0]) + 3, int(span[1]) + 3
-        batch = max(1, min(TILE_BATCH if tile_batch is None else tile_batch,
-                           n_ty * n_tx))
+        batch = _clamped_batch(tile_batch, n_ty * n_tx, mesh)
         group, rpad_bytes, bt = _hbm_group_plan(
             order_hint, by_e, bx_e,
             n_ty * th + by_e - 1, n_tx * tw + bx_e - 1, item, batch, budget)
@@ -617,18 +632,24 @@ def _weights_1d(frac, order):
     ], dim=-1)
 
 
-def _combine_lags(S, coeffs_d, o_tab_d, ids_d, order, plan):
+def _pair_tensors(order, dtype, device):
+    """:func:`_pair_indices` of the order's taps as tensors on ``device``."""
+    pi, pj, pmult = _pair_indices(_tap_count(order) ** 2)
+    return (torch.as_tensor(pi, device=device),
+            torch.as_tensor(pj, device=device),
+            torch.as_tensor(pmult, dtype=dtype, device=device))
+
+
+def _combine_lags(S, coeffs_d, o_tab_d, ids_d, order, plan, pairs=None):
     """Stage 2: per-lag readout and fractional-tap weighting over the tiles
     ``ids_d`` whose boxes are ``S``; the lag axis stays last: values (Tn,
-    n_surf, L), weights (Tn, nt, L).  Returns (L, 6) sums."""
+    n_surf, L), weights (Tn, nt, L).  ``pairs``: :func:`_pair_tensors` on
+    S's device, made here when None.  Returns (L, 6) sums."""
     nt = _tap_count(order) ** 2
     L = coeffs_d.shape[0]
     Tn, n_surf, by, bx = S.shape
     dt, dev = S.dtype, S.device
-    pi, pj, pmult = _pair_indices(nt)
-    pi_d = torch.as_tensor(pi, device=dev)
-    pj_d = torch.as_tensor(pj, device=dev)
-    pmult_d = torch.as_tensor(pmult, dtype=dt, device=dev)
+    pi_d, pj_d, pmult_d = pairs or _pair_tensors(order, dt, dev)
 
     u = ((ids_d % plan.n_tx) * plan.tw).to(dt) + (plan.tw - 1) / 2.0
     v = ((ids_d // plan.n_tx) * plan.th).to(dt) + (plan.th - 1) / 2.0
@@ -661,32 +682,50 @@ def _combine_lags(S, coeffs_d, o_tab_d, ids_d, order, plan):
     ], dim=-1)                                                  # (L, 6)
 
 
-def _tiles_sum(g_stack, r_pad, coeffs_d, plan, order, score):
+def _tiles_sum(g_stack, r_pad, coeffs_d, plan, order, score, devices):
     """Stages 1 and 2 over every tile, ``plan.group`` tiles at a time with
-    an (L, 6) running sum (only one group's boxes are ever resident)."""
-    dev = g_stack.device
-    o_tab_d = torch.as_tensor(plan.o_tab, device=dev)
-    acc = None
-    for g0 in range(0, plan.n_tiles, plan.group):
-        ids = list(range(g0, min(g0 + plan.group, plan.n_tiles)))
-        S = _tiles_surfaces(g_stack, r_pad, plan, ids, order, score)
-        comp = _combine_lags(S, coeffs_d, o_tab_d,
-                             torch.as_tensor(ids, device=dev), order, plan)
-        del S  # freed before the next group's boxes are allocated
-        acc = comp if acc is None else acc + comp
-    return acc
+    an (L, 6) running sum per shard (only one group's boxes are ever
+    resident on a device), the tile axis split over ``devices``; the
+    shards' sums are added on the first device.  ``g_stack``, ``r_pad``
+    and ``coeffs_d`` are replicated, every constant placed before the first
+    launch."""
+    ranges = mesh_mod.split(plan.n_tiles, devices)
+    g_r, r_r, c_r = (mesh_mod.replicate(t, devices)
+                     for t in (g_stack, r_pad, coeffs_d))
+    o_tab = mesh_mod.replicate(torch.as_tensor(plan.o_tab), devices)
+    pairs = {dev: _pair_tensors(order, g_stack.dtype, dev)
+             for dev in set(devices)}
+    ids_d = [torch.arange(a, b, device=dev)
+             for (a, b), dev in zip(ranges, devices)]
+    acc = [None] * len(devices)
+    for k, g0, g1 in mesh_mod.round_robin(ranges, plan.group):
+        S = _tiles_surfaces(g_r[k], r_r[k], plan, list(range(g0, g1)), order,
+                            score)
+        a = ranges[k][0]
+        comp = _combine_lags(S, c_r[k], o_tab[k], ids_d[k][g0 - a:g1 - a],
+                             order, plan, pairs[devices[k]])
+        del S  # freed before the device's next group is allocated
+        acc[k] = comp if acc[k] is None else acc[k] + comp
+    parts = [a.to(devices[0]) for a in acc if a is not None]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
 
 
 def plan_tiles(coeffs, *, order, h, w, scale_det_per_grid=1.0,
                tol_det=TOL_DET_PX, compute_dtype="float32", tile_size=None,
                tile_batch=None, mem_budget_bytes=None, vs_k2=False,
-               device):
+               device, mesh=None):
     """The gate and the host prep of :func:`evaluate_select_tile_fft`:
     a :class:`TilePlan`, or None when the gate or a guard declines.  The
     stage-1 guard is the JAX package's ceiling
     (:data:`_MAX_STAGE1_SECONDS`), or with ``vs_k2`` the card's cost
     model: the plan's stage-1 estimate plus :data:`_EST_SELECT_OVERHEAD_S`
-    must stay under K2's estimate for the same lags."""
+    must stay under K2's estimate for the same lags.  The working set is
+    planned per device (each holds its own r stack and one group of
+    boxes); with a ``mesh`` of several devices the batch is clamped to a
+    device's share of the tiles."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
     coeffs = np.asarray(coeffs, dtype=np.float64)
@@ -724,8 +763,7 @@ def plan_tiles(coeffs, *, order, h, w, scale_det_per_grid=1.0,
         return None  # offsets far beyond the image extent: not worth it
 
     n_tiles = n_ty * n_tx
-    batch = max(1, min(int(TILE_BATCH if tile_batch is None
-                           else tile_batch), n_tiles))
+    batch = _clamped_batch(tile_batch, n_tiles, mesh)
     budget = MEM_BUDGET_BYTES if mem_budget_bytes is None \
         else mem_budget_bytes
     n_surf, n_rf = _plane_counts(order)
@@ -789,8 +827,9 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
     ``tile_size``: an int for square tiles, (th, tw), or None to pick the
     cheapest rectangle meeting the gate (:func:`pick_tile_shape`).
     ``tile_batch``: tiles per stage-1 step (default :data:`TILE_BATCH`).
+    ``mesh``: a sequence of devices; the tile axis is split over them
+    (:func:`_tiles_sum`).
     """
-    check_single_device_mesh(mesh)
     if method not in ("correlation", "residus_masked") or order not in (0, 2):
         return None
     coeffs = np.asarray(coeffs, dtype=np.float64)
@@ -798,12 +837,13 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
         return np.zeros(0)
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh)
     plan = plan_tiles(coeffs, order=order, h=h, w=w,
                       scale_det_per_grid=scale_det_per_grid, tol_det=tol_det,
                       compute_dtype=dt, tile_size=tile_size,
                       tile_batch=tile_batch,
                       mem_budget_bytes=mem_budget_bytes, vs_k2=vs_k2,
-                      device=dev)
+                      device=dev, mesh=devices)
     if plan is None:
         return None
     logger.info("tile-FFT plan: tiles (%d, %d), %d x %d = %d, transforms "
@@ -811,6 +851,9 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
                 plan.th, plan.tw, plan.n_ty, plan.n_tx, plan.n_tiles,
                 plan.my, plan.mx, plan.by, plan.bx,
                 -(-plan.n_tiles // plan.group), plan.batch)
+    if devices is not None:
+        logger.info("tile-FFT mesh: %d tiles over %d shard(s)",
+                    plan.n_tiles, len(devices))
 
     score = "pearson" if method == "correlation" else "residus"
     with stage("carr_tilefft_eval_s"):
@@ -822,6 +865,6 @@ def evaluate_select_tile_fft(coeffs, warped, ref_img, *, order, h, w,
         del r_stack
         sums = _tiles_sum(g_stack, r_pad,
                           torch.as_tensor(coeffs, dtype=dt, device=dev),
-                          plan, order, score)
+                          plan, order, score, devices or (dev,))
         S = sums.to(torch.float64).cpu().numpy()  # (L, 6)
     return scores_from_sums(S, method)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import resample, wcs
+from ..utils import mesh as mesh_mod
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import _build
 
@@ -217,7 +218,7 @@ def evaluate_lag_grid_warp(
     small_img, ref_img, lon, lat, base_params,
     lag_crval1, lag_crval2, lag_cdelt1, lag_cdelt2, lag_crota,
     *, order=2, method="correlation", kind="tan", device,
-    compute_dtype="float32",
+    compute_dtype="float32", mesh=None,
 ):
     """Engine-compatible evaluator backed by K1.
 
@@ -225,11 +226,18 @@ def evaluate_lag_grid_warp(
     does not compute (a method other than correlation, order 3, or a
     reference image whose shape differs from the small image's).  Lags and
     ``base_params`` (WCS dict plus ``crota``) are in degrees.
+
+    ``mesh``: a sequence of devices (:mod:`..utils.mesh`); the lag axis is
+    split over them in contiguous ranges, the operands replicated to each
+    device, every shard launched before the first is read back.  A shard
+    with fewer lags may sum its float64 partials in another order
+    (:func:`launch_geometry`), so r moves at rounding only.
     """
     if method != "correlation" or order not in (0, 1, 2):
         return None
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
+    devices = mesh_mod.resolve_mesh(mesh) or (dev,)
     ls = [np.asarray(v, dtype=np.float64) for v in
           (lag_crval1, lag_crval2, lag_cdelt1, lag_cdelt2, lag_crota)]
     shape5 = tuple(len(v) for v in ls)
@@ -250,12 +258,19 @@ def evaluate_lag_grid_warp(
     small_c = small - torch.nanmean(small.double()).to(dt)
     canvas = F.pad(small_c[None, None], (PAD, PAD, PAD, PAD),
                    mode="reflect")[0, 0].contiguous()
-    table = torch.as_tensor(lag_table(base_params, lags), dtype=dt,
-                            device=dev)
-    sums = torch.cat([
-        warp_score_sums(canvas, ref_c, lon_t, lat_t,
-                        table[s:s + MAX_LAGS].contiguous(), pad=PAD,
-                        order=order, kind=kind)
-        for s in range(0, lags.shape[0], MAX_LAGS)])
-    r = pearson_from_sums(sums.cpu().numpy())
+    table = lag_table(base_params, lags)
+    ranges = mesh_mod.split(lags.shape[0], devices)
+    operands = [mesh_mod.replicate(t, devices)
+                for t in (canvas, ref_c, lon_t, lat_t)]
+    # every upload before the first launch: a host-to-device copy waits
+    # for its device's queue
+    tables = [torch.as_tensor(table[a:b], dtype=dt, device=d)
+              for (a, b), d in zip(ranges, devices)]
+    parts = {}
+    for k, s, e in mesh_mod.round_robin(ranges, MAX_LAGS):
+        a = ranges[k][0]
+        parts[s] = warp_score_sums(
+            *(op[k] for op in operands), tables[k][s - a:e - a],
+            pad=PAD, order=order, kind=kind)
+    r = pearson_from_sums(mesh_mod.gather(parts).numpy())
     return r.reshape(shape5)

@@ -16,8 +16,10 @@ constructor and the same three entry points (``align_using_helioprojective``,
 ``device`` is required to exist: ``device="cuda"`` without a card raises.
 ``parallelism`` and ``counts_cpu_max`` are accepted no-ops, as in the JAX
 package.  ``path_save_figure`` saves the same diagnostic figures as the JAX
-package (matplotlib, imported only then).  Not ported yet (ROADMAP.md):
-multi-device meshes.
+package (matplotlib, imported only then).  ``use_device_mesh=True`` (the
+default) shards every search over all the machine's cards when it has more
+than one (``utils.mesh.default_mesh``: ``self.mesh``, None on one card or
+the CPU).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..core.header import ensure_pcij, get_crota, wcs_params_from_header
 from ..engine import carrington as carr_engine
 from ..engine import lag_search
 from ..utils import coords, units
+from ..utils.mesh import default_mesh
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from .results import AlignmentResults
 
@@ -95,11 +98,7 @@ class Alignment:
     ):
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(compute_dtype)
-        if (use_device_mesh and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "multi-GPU lag sharding: not yet ported, see ROADMAP; pass "
-                "use_device_mesh=False")
+        self.mesh = default_mesh(self.device) if use_device_mesh else None
         self.large_fov_known_pointing = large_fov_known_pointing
         self.small_fov_to_correct = small_fov_to_correct
 
@@ -270,6 +269,19 @@ class Alignment:
         remove_fov_limits=None,
     ):
         """Lag search in the helioprojective frame (the main path)."""
+        self._begin_helioprojective(method, fov_limits=fov_limits,
+                                    remove_fov_limits=remove_fov_limits)
+        corr = self._run_projected_search(wrap=True)
+        if return_type == "corr":
+            return corr
+        return self._make_results(corr)
+
+    def _begin_helioprojective(self, method: str, fov_limits=None,
+                               remove_fov_limits=None):
+        """Load, thresholds and field-of-view limits of a helioprojective
+        search; shared with the movie fleet
+        (``jitter_correction._align_movie_batched``), so that both stay the
+        same up to the engine call."""
         self.method = method
         self.coordinate_frame = "final_helioprojective"
         if self.data_small is None:
@@ -281,11 +293,6 @@ class Alignment:
             self._apply_fov_limits(fov_limits)
         if np.all(np.isnan(self.data_small)):
             raise ValueError("minimum or maximum value have set all small FOV to nan")
-
-        corr = self._run_projected_search(wrap=True)
-        if return_type == "corr":
-            return corr
-        return self._make_results(corr)
 
     def align_using_initial_carrington(
         self, method: str = "correlation", return_type: str = "AlignmentResults"
@@ -408,7 +415,7 @@ class Alignment:
                     order=self.order, method=self.method, device=self.device,
                     compute_dtype=self.compute_dtype,
                     batch_size=self.batch_size_lags,
-                    lag_mode=self.lag_search_mode)
+                    lag_mode=self.lag_search_mode, mesh=self.mesh)
             corr_parts.append(corr5)
         return np.stack(corr_parts, axis=-1)
 
@@ -452,7 +459,8 @@ class Alignment:
                     small, ref_img, lon, lat, base, l1, l2, l3, l4, l5,
                     order=self.order, method=self.method, kind=kind,
                     device=self.device, compute_dtype=self.compute_dtype,
-                    batch_size=self.batch_size_lags, allow_fast=allow_fast)
+                    batch_size=self.batch_size_lags, allow_fast=allow_fast,
+                    mesh=self.mesh)
             corr_parts.append(corr5)
         return np.stack(corr_parts, axis=-1)
 
@@ -622,6 +630,7 @@ class Alignment:
                 compute_dtype=self.compute_dtype,
                 batch_size=self.batch_size_lags,
                 allow_fast=allow_fast,
+                mesh=self.mesh,
             )
         # helioprojective ignores lag_solar_r: replicate across the 6th axis
         return np.repeat(corr5[..., np.newaxis], len(self.lag_solar_r), axis=-1)

@@ -10,9 +10,9 @@ one FFT correlation-surface evaluation.
 
 With ``path_figures`` each aligned frame's correlation figure (and with
 ``plot_all_figures`` its before/after figure, resampled on ``device``) is
-saved there, as in the JAX package.  Not ported yet (ROADMAP): the
-frame-axis fleet over several cards (a ``mesh`` of more than one device
-raises).
+saved there, as in the JAX package.  With a ``mesh`` of several devices a
+helioprojective CRVAL-only movie is one fleet search, the frame axis split
+over the devices (``engine.fast_corr.evaluate_movie_from_displacements``).
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ import shutil
 import numpy as np
 
 from ..hdrshift.alignment import Alignment
+from ..utils.mesh import resolve_mesh
 from ..utils.obs import Progress, logger
-from ..utils.torchcfg import check_single_device_mesh
 
 
 def jitter_correction_imagers(
@@ -63,8 +63,13 @@ def jitter_correction_imagers(
     that exactly one sublist aligns (an overlap frame aligned twice is
     always re-aligned); they are absent from the returned dict.
     ``device`` is passed to every ``Alignment``.
+
+    ``mesh``: a sequence of devices; in helioprojective mode with a
+    CRVAL-only lag grid each sublist is then one fleet search with the frame
+    axis split over them (:func:`align_movie_to_reference`).  Sublists stay
+    sequential: each one's reference is the corrected overlap frame the
+    previous one wrote.
     """
-    check_single_device_mesh(mesh)
     if overlap == 0:
         raise ValueError(
             "number of overlapping images between sublists can not be equal to 0."
@@ -90,6 +95,10 @@ def jitter_correction_imagers(
                         label="jitter correction")
     logger.info("jitter correction: %d frames in %d sublists",
                 len(list_files_input), len(sublists))
+    crval_only = all(
+        g is None or (len(np.atleast_1d(g)) == 1
+                      and float(np.atleast_1d(g)[0]) == 0.0)
+        for g in (lag_cdelt1, lag_cdelt2, lag_crota))
     # how many sublists align each frame (resume rule below)
     align_count = {}
     for s in sublists:
@@ -120,6 +129,28 @@ def jitter_correction_imagers(
                             "in sublist %d", len(done), ii)
                 progress.step(len(done))
             pending = [i for i in pending if i not in done]
+
+        if (mesh is not None and alignement_method == "helioprojective"
+                and crval_only and pending):
+            fleet = align_movie_to_reference(
+                [list_files_input[i] for i in pending], path_reference,
+                path_files_output=path_files_output,
+                lag_crval1=lag_crval1, lag_crval2=lag_crval2,
+                window_files_input=window_files_input,
+                reference_window=window_files_input, mesh=mesh,
+                unit_lag=unit_lag, small_fov_value_max=small_fov_value_max,
+                small_fov_value_min=small_fov_value_min, device=device)
+            date_ref = dates[index_ref][11:19].replace(":", "_")
+            for j, index_to_align in enumerate(pending):
+                results = fleet[j]
+                results_all[index_to_align] = results
+                if path_figures is not None:
+                    _save_frame_figures(
+                        results, path_figures, plot_all_figures,
+                        dates[index_to_align][11:19].replace(":", "_"),
+                        date_ref, device)
+                progress.step()
+            continue
 
         for index_to_align in pending:
             date_to_align = dates[index_to_align][11:19].replace(":", "_")
@@ -176,13 +207,20 @@ def align_movie_to_reference(
     ``**alignment_kwargs`` go to every ``Alignment`` (``device=``,
     ``compute_dtype=``, ``lag_search_mode=``, ...).  ``resume=True`` (with
     ``path_files_output``) skips frames whose corrected output already
-    exists; skipped frames are absent from the returned dict.  ``mesh``:
-    ``None`` or one device (more raises ``NotImplementedError``).
+    exists; skipped frames are absent from the returned dict.
+
+    ``mesh``: a sequence of devices; a helioprojective CRVAL-only movie is
+    then evaluated as one fleet search with the frame axis split over them
+    (:func:`_align_movie_batched`), falling back to the per-frame loop
+    whenever a precondition of the fleet fails.  Without a mesh the frames
+    go through the per-frame loop: the fleet holds every frame's operands
+    on the device at once, the loop one frame's, so only the loop's memory
+    stays flat however long the movie is.
 
     Returns {index: AlignmentResults}; writes corrected files when
     ``path_files_output`` is given.
     """
-    check_single_device_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     frames = list(enumerate(list_files_input))  # (original index, path)
     if resume and path_files_output is not None:
         todo = [(k, p) for k, p in frames
@@ -192,6 +230,15 @@ def align_movie_to_reference(
             logger.info("resume: skipping %d already-corrected frames",
                         len(frames) - len(todo))
         frames = todo
+
+    if (mesh is not None and alignement_method == "helioprojective"
+            and frames):
+        batched = _align_movie_batched(
+            [p for _, p in frames], reference_path, path_files_output,
+            lag_crval1, lag_crval2, window_files_input, reference_window,
+            mesh, dict(alignment_kwargs))
+        if batched is not None:
+            return {frames[j][0]: r for j, r in batched.items()}
 
     progress = Progress(total=len(frames), label="movie alignment")
     results_all = {}
@@ -225,6 +272,110 @@ def align_movie_to_reference(
             )
         progress.step()
     return results_all
+
+
+def _align_movie_batched(paths, reference_path, path_files_output,
+                         lag_crval1, lag_crval2, window, ref_window, mesh,
+                         akw):
+    """Fleet evaluation of a helioprojective CRVAL-only movie alignment.
+
+    Per frame: load, thresholds and submap (``Alignment``'s own
+    ``_begin_helioprojective`` and ``_prepare_projected_operands``); then
+    one ``evaluate_movie_from_displacements`` call scores every (frame,
+    lag) pair with the frame axis split over ``mesh``.  Returns ``{index:
+    AlignmentResults}``, or None (the caller runs the per-frame loop) for a
+    mesh of fewer than two devices, a lag mode other than auto/fast, an
+    order other than 0 or 2, frames of mixed shapes or a displacement
+    spread above the fast path's gate.
+    """
+    from ..engine import fast_corr
+
+    if akw.get("lag_search_mode", "auto") not in ("auto", "fast"):
+        return None
+    if akw.get("reprojection_order", 2) not in (0, 2):
+        return None
+    if mesh is None or len(mesh) <= 1:
+        return None
+    method = "correlation"
+
+    progress = Progress(total=len(paths) + 1, label="movie alignment (fleet)")
+    alignments, smalls, refs, cs_list = [], [], [], []
+    for path in paths:
+        A = Alignment(
+            large_fov_known_pointing=reference_path,
+            large_fov_window=ref_window,
+            small_fov_to_correct=path,
+            small_fov_window=window,
+            lag_crval1=lag_crval1,
+            lag_crval2=lag_crval2,
+            lag_cdelt1=None, lag_cdelt2=None, lag_crota=None,
+            **akw,
+        )
+        A._begin_helioprojective(method)
+        lon, lat, ref_img, base, kind = A._prepare_projected_operands(
+            wrap=True)
+        l1, l2, l3, l4, l5 = A._lags_deg(wrap=True)
+        if not fast_corr.fast_path_applicable(l3, l4, l5, A.order):
+            return None
+        g1, g2 = np.meshgrid(l1, l2, indexing="ij")
+        lags = np.stack([g1.ravel(), g2.ravel()], axis=-1)
+        c, spread = fast_corr.displacement_per_lag(base, lags, lon, lat, kind)
+        if spread > fast_corr.MAX_DISPLACEMENT_SPREAD_PX:
+            return None
+        if smalls and (A.data_small.shape != smalls[0].shape
+                       or c.shape != cs_list[0].shape):
+            return None  # mixed frame shapes: the per-frame loop does them
+        alignments.append(A)
+        smalls.append(A._to_device(A.data_small))
+        refs.append(ref_img)  # on the device, as the submap made it
+        cs_list.append(c)
+        progress.step()
+
+    import torch
+
+    A0 = alignments[0]
+    corr = fast_corr.evaluate_movie_from_displacements(
+        torch.stack(smalls), torch.stack(refs), np.stack(cs_list),
+        order=A0.order, device=A0.device, compute_dtype=A0.compute_dtype,
+        mesh=mesh, method=method)
+    if corr is None:
+        return None
+    logger.info("fleet movie search: %d frames x %d lags on %d devices",
+                len(alignments), corr.shape[1], len(mesh))
+    progress.step()
+
+    n1, n2 = len(A0.lag_crval1), len(A0.lag_crval2)
+    results_all = {}
+    for k, A in enumerate(alignments):
+        corr6 = np.repeat(corr[k].reshape(n1, n2, 1, 1, 1)[..., np.newaxis],
+                          len(A.lag_solar_r), axis=-1)
+        results = A._make_results(corr6)
+        results_all[k] = results
+        if path_files_output is not None:
+            results.write_corrected_fits(
+                window_list_to_apply_shift=[window],
+                path_to_l3_output=os.path.join(
+                    path_files_output, os.path.basename(str(paths[k]))),
+            )
+    return results_all
+
+
+def _save_frame_figures(results, path_figures, plot_all, date_to_align,
+                        date_ref, device):
+    """A jitter frame's correlation figure (and with ``plot_all`` its
+    before/after figure) in ``path_figures``."""
+    results.plot_correlation(path_save_figure=os.path.join(
+        path_figures, f"correlation_{date_to_align}_{date_ref}.pdf"))
+    if plot_all:
+        results.plot_co_alignment(
+            type_plot="successive_plot",
+            path_save_figure=os.path.join(
+                path_figures,
+                f"plot_co_alignment_{date_to_align}_{date_ref}.pdf"),
+            device=device)
+    from matplotlib import pyplot as plt
+
+    plt.close("all")
 
 
 def _align_hrieuv_with_hrieuv(
@@ -281,20 +432,8 @@ def _align_hrieuv_with_hrieuv(
         raise ValueError(f"unknown alignement_method: {alignement_method}")
 
     if path_output_figures is not None:
-        date_ref = str(reference_date)[11:19].replace(":", "_")
-        results.plot_correlation(
-            path_save_figure=os.path.join(
-                path_output_figures, f"correlation_{date_to_align}_{date_ref}.pdf")
-        )
-        if do_plot_figure:
-            results.plot_co_alignment(
-                type_plot="successive_plot",
-                path_save_figure=os.path.join(
-                    path_output_figures,
-                    f"plot_co_alignment_{date_to_align}_{date_ref}.pdf"),
-                device=device,
-            )
-        from matplotlib import pyplot as plt
-
-        plt.close("all")
+        _save_frame_figures(results, path_output_figures, do_plot_figure,
+                            date_to_align,
+                            str(reference_date)[11:19].replace(":", "_"),
+                            device)
     return results

@@ -5,11 +5,9 @@ Counterpart of ``euispice_coreg_tpu/pxlshift/alignment_pixels.py``
 to the small image's plate scale, optionally correct the large image for
 solar rotation, then slide the small image (optionally rotated) over it in
 integer-pixel steps and Pearson-score every offset.  Per rotation angle the
-whole (dx, dy) grid is one FFT correlation-surface evaluation
-(:func:`engine.fast_corr.pearson_integer_shifts`).
-
-Not ported yet (ROADMAP): the rotation-axis fleet evaluation over several
-cards (``mesh`` of more than one device raises).
+whole (dx, dy) grid is one FFT correlation-surface evaluation; the rotations
+are the frames of one evaluation, split over the devices of a ``mesh``
+(:func:`engine.fast_corr.pearson_integer_shifts_frames`).
 """
 from __future__ import annotations
 
@@ -17,7 +15,8 @@ import numpy as np
 
 from ..engine import fast_corr, lag_search
 from ..utils import timeutils, units
-from ..utils.torchcfg import check_single_device_mesh, resolve_device
+from ..utils.mesh import resolve_mesh
+from ..utils.torchcfg import resolve_device
 
 
 class AlignmentPixels:
@@ -52,9 +51,10 @@ class AlignmentPixels:
                              mesh=None):
         """corr hypercube of shape (len(lag_dx), len(lag_dy), len(lag_drot)).
 
-        ``mesh``: ``None`` or one device (more raises
-        ``NotImplementedError``)."""
-        check_single_device_mesh(mesh)
+        ``mesh``: a sequence of devices (None: ``device`` alone); the
+        rotations are split over them as the frames of one evaluation
+        (:meth:`_find_best_parameters_fleet`)."""
+        mesh = resolve_mesh(mesh)
         if shift_solar_rotation_dx_large:
             self._shift_large_fov()
         self._sub_resolution_large_fov()
@@ -75,15 +75,27 @@ class AlignmentPixels:
                 )
                 self._check_boundaries(slc, self.data_large.shape)
 
-        # embed the small image in large-frame coordinates; NaN elsewhere
-        corr = np.zeros((len(lag_dx), len(lag_dy), len(lag_drot)))
-        for kk, drot in enumerate(lag_drot):
-            canvas = np.full(self.data_large.shape, np.nan)
-            canvas[self.slc_small_ref] = self._rotate_small(float(drot),
-                                                            unit_rot)
-            corr[:, :, kk] = fast_corr.pearson_integer_shifts(
-                canvas, self.data_large, lag_dx, lag_dy, device=self.device)
-        return corr
+        return self._find_best_parameters_fleet(lag_dx, lag_dy, lag_drot,
+                                                unit_rot, mesh)
+
+    def _canvas(self, drot: float, unit_rot: str):
+        """The small image rotated by ``drot`` and embedded in large-frame
+        coordinates, NaN elsewhere."""
+        canvas = np.full(self.data_large.shape, np.nan)
+        canvas[self.slc_small_ref] = self._rotate_small(drot, unit_rot)
+        return canvas
+
+    def _find_best_parameters_fleet(self, lag_dx, lag_dy, lag_drot,
+                                    unit_rot: str, mesh):
+        """Rotation-axis fleet: the rotated canvases are the frames of one
+        :func:`engine.fast_corr.pearson_integer_shifts_frames` evaluation
+        split over ``mesh`` (None: ``self.device``; the large frame placed
+        once per device); the (len(dx), len(dy), len(drot)) hypercube."""
+        canvases = [self._canvas(float(drot), unit_rot) for drot in lag_drot]
+        corr = fast_corr.pearson_integer_shifts_frames(
+            canvases, self.data_large, lag_dx, lag_dy, device=self.device,
+            mesh=mesh)
+        return corr.transpose(1, 2, 0)
 
     def _rotate_small(self, drot: float, unit_rot: str):
         """Rotate the small image about its center (polar transform +

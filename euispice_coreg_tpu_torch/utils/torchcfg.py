@@ -40,22 +40,6 @@ def resolve_dtype(dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-MESH_NOT_PORTED = ("multi-device mesh (frame- or lag-axis sharding over "
-                   "several cards): not yet ported, see ROADMAP item 12")
-
-
-def check_single_device_mesh(mesh) -> None:
-    """Accept ``mesh=None`` or a mesh of one device; raise
-    ``NotImplementedError`` for more.  A mesh is a
-    ``torch.distributed.DeviceMesh`` (its ``size()``) or a sequence of
-    devices."""
-    if mesh is None:
-        return
-    n = mesh.size() if callable(getattr(mesh, "size", None)) else len(mesh)
-    if n > 1:
-        raise NotImplementedError(MESH_NOT_PORTED)
-
-
 def to_tensor(a, *, device, dtype) -> torch.Tensor:
     """numpy array or tensor -> contiguous tensor on ``device`` in ``dtype``.
     Arrays are copied (never aliased); tensors already in place are

@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
     assert int(n) >= 15
     for mod in ("io.native", "io.tile_compression", "plot.plot",
                 "utils.util_compat", "engine.tile_fft", "core.transforms",
-                "utils.matrix_transform"):
+                "utils.matrix_transform", "utils.mesh"):
         assert f"'euispice_coreg_tpu_torch.{mod}'" in names, mod
     assert bad.strip() == "]"
 
@@ -184,12 +184,14 @@ def test_cuda_kernel_call_without_card_raises():
 
 
 def test_not_ported_parts_raise(tmp_path):
-    """Meshes of more than one device raise NotImplementedError naming the
-    ROADMAP; tile-compressed FITS, figures and the Carrington tile-FFT
-    evaluator are ported and no longer raise."""
+    """Nothing is left unported: tile-compressed FITS, figures, the
+    Carrington tile-FFT evaluator and meshes of several devices run.  A
+    mesh of two devices (frame- and tile-axis sharding) gives the
+    unsharded result, and the port holds no refusal of a mesh."""
     from euispice_coreg_tpu_torch import Alignment
     from euispice_coreg_tpu_torch.hdrshift import results
     from euispice_coreg_tpu_torch.io import fits
+    from euispice_coreg_tpu_torch.utils import torchcfg
 
     assert not hasattr(fits, "_TILE_COMPRESSED")
     assert not hasattr(results, "PLOT_NOT_PORTED")
@@ -209,20 +211,27 @@ def test_not_ported_parts_raise(tmp_path):
         img, img, hdr, (119.0, 121.0), (-1.0, 1.0), (16, 16), [0.0],
         [0.0], [0.0], [0.0], [0.0], device="cpu", lag_mode="tile_fft")
     assert out.shape == (1, 1, 1, 1, 1)
-    # a mesh of more than one device (frame-axis sharding, ROADMAP item 12)
-    from euispice_coreg_tpu_torch.engine import fast_corr
-    from euispice_coreg_tpu_torch.utils.torchcfg import \
-        check_single_device_mesh
+    # a mesh of two devices: the unsharded result
+    from euispice_coreg_tpu_torch.engine import fast_corr, tile_fft
 
-    for one in (None, ["cpu"]):
-        check_single_device_mesh(one)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        fast_corr.evaluate_movie_from_displacements(
-            img[None], img[None], np.zeros((1, 1, 2)), device="cpu",
-            mesh=[torch.device("cpu")] * 2)
-    from euispice_coreg_tpu_torch.engine import tile_fft
-
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tile_fft.evaluate_select_tile_fft(
-            np.zeros((1, 6, 2)), img, img, order=2, h=16, w=16,
-            device="cpu", mesh=[torch.device("cpu")] * 2)
+    assert not hasattr(torchcfg, "MESH_NOT_PORTED")
+    assert not hasattr(torchcfg, "check_single_device_mesh")
+    two = [torch.device("cpu")] * 2
+    rng = np.random.default_rng(0)
+    frames = rng.normal(size=(3, 16, 16)) + 10.0
+    cs = rng.uniform(-1.0, 1.0, size=(3, 4, 2))
+    kw = dict(device="cpu", compute_dtype="float64")
+    np.testing.assert_allclose(
+        fast_corr.evaluate_movie_from_displacements(frames, frames[::-1], cs,
+                                                    mesh=two, **kw),
+        fast_corr.evaluate_movie_from_displacements(frames, frames[::-1], cs,
+                                                    **kw), rtol=0, atol=1e-12)
+    coeffs = np.zeros((3, 6, 2))
+    coeffs[:, 2, 0] = [-1.0, 0.0, 1.0]
+    kw = dict(order=2, h=16, w=16, device="cpu", compute_dtype="float64",
+              tile_size=8)
+    np.testing.assert_allclose(
+        tile_fft.evaluate_select_tile_fft(coeffs, frames[0], frames[1],
+                                          mesh=two, **kw),
+        tile_fft.evaluate_select_tile_fft(coeffs, frames[0], frames[1], **kw),
+        rtol=0, atol=1e-12)

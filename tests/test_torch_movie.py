@@ -272,10 +272,9 @@ def test_jitter_correction_resume_matches_jax(tmp_path, monkeypatch):
 
 
 def test_figures_and_mesh_raise_before_any_output(tmp_path):
-    """A mesh of two devices raises ``NotImplementedError`` before any file
-    is read or written, with or without ``path_figures``; figures are
-    ported, so ``path_figures`` alone reaches the inputs (absent here:
-    ``FileNotFoundError``) and nothing is written either."""
+    """Absent inputs raise ``FileNotFoundError`` before any file is written:
+    with ``path_figures``, and with a mesh of two devices (the fleet), with
+    or without ``path_figures``, in either movie entry point."""
     out = tmp_path / "out"
     os.makedirs(out)
     missing = [str(tmp_path / "absent_0.fits"), str(tmp_path / "absent_1.fits")]
@@ -283,12 +282,13 @@ def test_figures_and_mesh_raise_before_any_output(tmp_path):
         jitter_correction_imagers(missing, str(out),
                                   path_figures=str(tmp_path), device="cpu")
     two = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        jitter_correction_imagers(missing, str(out), mesh=two, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(FileNotFoundError):
+        jitter_correction_imagers(missing, str(out), mesh=two, device="cpu",
+                                  alignement_method="helioprojective")
+    with pytest.raises(FileNotFoundError):
         jitter_correction_imagers(missing, str(out), mesh=two,
                                   path_figures=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(FileNotFoundError):
         align_movie_to_reference(missing, missing[0], str(out), mesh=two,
                                  device="cpu")
     with pytest.raises(FileNotFoundError):
