@@ -84,10 +84,14 @@ Phases (each prints its own lines; any failure exits nonzero):
                coordinates within 1e-9 px, images within 1e-6.
 7. slice D  -- public API, "auto", 21x21 CRVAL (1") x 3 CDELT1 x 3 CDELT2
                (0.5 % of the pixel) x 3 CROTA = 11907 candidates on A's
-               pair: must take the block path (27 combos) and recover +8"
-               within 1.5"; the same grid under "pallas" (K1) must give
-               the same CRVAL argmax on the central plane; 5 x 5 x 3 = 75
-               combos must take the block path and recover the same.
+               pair: the router must send it to K1 (its "auto route" line
+               and K1's engine line) and recover +8" within 1.5"; the same
+               grid under "fast" must take the block path (27 combos) and
+               under "pallas" (K1) give auto's hypercube bit for bit, all
+               three with the same CRVAL argmax on the central plane;
+               5 x 5 x 3 = 75 combos under "fast" must take the block path
+               and recover the same, printed beside the router's
+               estimates.
 8. slice E  -- align_movie_to_reference on 6 frames of A's scene (pointing
                errors within +-4", default 21x21 lags at 0.5"): every
                frame within 1"; jitter_correction_imagers
@@ -111,7 +115,8 @@ Phases (each prints its own lines; any failure exits nonzero):
                AlignmentSpice.align_using_helioprojective, "auto", 41x41
                CRVAL at 1" (FFT path); (G3) 21x21 at 1" x CDELT1 {-0.08,
                0, +0.08}" x CROTA {-0.2, 0, +0.2} deg = 3969 candidates
-               under "pallas" (K1) and "auto" (block path), CRVAL argmax
+               under "pallas" (K1), "auto" (routed to K1, pallas's
+               hypercube bit for bit) and "fast" (block path), CRVAL argmax
                equal; (G4) align_using_carrington("fa"), "pallas" (K2),
                41x41 at 1" on a 1024^2 Carrington grid over the raster;
                G2-G4 recover (+8", -4") within (2", 1"); (G5) the iterative
@@ -120,6 +125,19 @@ Phases (each prints its own lines; any failure exits nonzero):
                (within 1e-6).  K1 and K2 timed against their bounds at
                G3's and G4's operands; the compose and chunk-score device
                functions timed on G5's first chunk.
+   phase R  -- the "auto" router of mixed grids (after slice G): slice
+               A's pair with 3 CROTA combos and CRVAL sub-grids of 11^2,
+               21^2, 31^2, 41^2 and 51^2 (1", centred on the +8"), 21^2 x
+               9 combos (3 CDELT1 x 3 CROTA), 21^2 x 3 at order 0, and
+               G3's operands (1024x192, 21^2 x 9).  Each grid once through
+               the API under "auto" (its route line), then at the engine
+               warm under "pallas" (K1) and the block path (best of 2
+               after a warm-up), beside the router's two estimates.  Fails
+               where the two routes' CRVAL argmax (central plane) differ,
+               or where auto took the slower route and the two differ by
+               more than 25%.  Prints the router's constants fitted to
+               these times and the crossover (CRVAL lags a combo at 2048^2)
+               under the constants in use and the fitted ones.
 11. slice H -- tile-compressed FITS, as the SIDC distributes EUI files:
                slice A's pair (photon-noise-like sigma 0.05 added, a block
                of NaNs in the small image) written as RICE_1 float32
@@ -1768,13 +1786,15 @@ def central_argmax(corr):
 
 
 def phase_slice_d(p_large, p_small, engine_log):
-    """auto on 11907 candidates (27 combos on the block path), the same grid
-    under "pallas" (K1), and 75 combos on the block path."""
+    """auto on 11907 candidates (the router sends them to K1), the same grid
+    under "fast" (27 combos on the block path) and under "pallas" (K1, the
+    same hypercube as auto's bit for bit), and 75 combos on the block
+    path beside the router's estimates."""
     import numpy as np
     import torch
 
     from euispice_coreg_tpu_torch import Alignment
-    from euispice_coreg_tpu_torch.engine import warp_score
+    from euispice_coreg_tpu_torch.engine import lag_search, warp_score
 
     def run(n_cdelt, mode, return_type="AlignmentResults"):
         lags = mixed_lags(n_cdelt)
@@ -1798,22 +1818,43 @@ def phase_slice_d(p_large, p_small, engine_log):
                                  f"{lag[mi[0]]}, fit {res.shift_arcsec}")
         return mi
 
+    def timed_runs(n_cdelt, mode, want_lines, label):
+        engine_log.lines.clear()
+        t0 = time.perf_counter()
+        lag, res = run(n_cdelt, mode)
+        t_first = time.perf_counter() - t0
+        mi = check(label, lag, res, want_lines)
+        route = [line for line in engine_log.lines
+                 if line.startswith("auto route:")]
+        t0 = time.perf_counter()
+        run(n_cdelt, mode, "corr")
+        return lag, res, mi, t_first, time.perf_counter() - t0, route
+
+    k1_lines = ("auto route: K1 est", "engine path: K1 fused warp+score")
     block_lines = ("engine path: FFT block fast (mixed grid)",)
-    engine_log.lines.clear()
-    t0 = time.perf_counter()
-    lag, res = run(3, "auto")
-    t_first = time.perf_counter() - t0
+
+    # auto: the router sends the 27 combos to K1
+    warp_score.LAUNCHES = 0
+    lag, res, mi, t_first, t_warm, route = timed_runs(3, "auto", k1_lines,
+                                                      "slice D auto")
+    if not route or not route[0].endswith("-> pallas"):
+        raise AssertionError(f"slice D auto did not route to K1: {route}")
     n_cand = res.corr[..., 0].size
-    mi = check("slice D", lag, res, block_lines)
-    t0 = time.perf_counter()
-    run(3, "auto", "corr")
-    t_warm = time.perf_counter() - t0
-    log(f"[slice D] {N}^2, {n_cand} candidates (27 combos), auto: block "
-        f"path, central argmax {lag[mi[0]]:+.1f}\" / "
-        f"{lag[mi[1]]:+.1f}\", fit {res.shift_arcsec[0]:+.3f}\" / "
-        f"{res.shift_arcsec[1]:+.3f}\"; API call first {t_first:.3f} s, "
-        f"warm {t_warm:.3f} s")
-    log_stages("slice D", lambda: run(3, "auto", "corr"))
+    log(f"[slice D] {N}^2, {n_cand} candidates (27 combos), auto: K1 "
+        f"({warp_score.LAUNCHES} launch(es) over two calls), central argmax "
+        f"{lag[mi[0]]:+.1f}\" / {lag[mi[1]]:+.1f}\", fit "
+        f"{res.shift_arcsec[0]:+.3f}\" / {res.shift_arcsec[1]:+.3f}\"; API "
+        f"call first {t_first:.3f} s, warm {t_warm:.3f} s; {route[0]}")
+    log_stages("slice D auto", lambda: run(3, "auto", "corr"))
+
+    # the block path, kept on the card under "fast"
+    _, res_blk, mi_blk, b_first, b_warm, _ = timed_runs(
+        3, "fast", block_lines, "slice D fast")
+    log(f"[slice D] same grid, fast: block path (27 combos), central argmax "
+        f"{lag[mi_blk[0]]:+.1f}\" / {lag[mi_blk[1]]:+.1f}\", fit "
+        f"{res_blk.shift_arcsec[0]:+.3f}\"; API call first {b_first:.3f} s, "
+        f"warm {b_warm:.3f} s")
+    log_stages("slice D", lambda: run(3, "fast", "corr"))
 
     warp_score.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1822,30 +1863,38 @@ def phase_slice_d(p_large, p_small, engine_log):
     if warp_score.LAUNCHES <= 0:
         raise AssertionError("slice D pallas did not launch K1")
     mi_k1 = central_argmax(res_k1.corr)
-    arg5 = np.unravel_index(np.nanargmax(res.corr[..., 0]),
-                            res.corr.shape[:5])
+    arg5 = np.unravel_index(np.nanargmax(res_blk.corr[..., 0]),
+                            res_blk.corr.shape[:5])
     arg5_k1 = np.unravel_index(np.nanargmax(res_k1.corr[..., 0]),
-                               res.corr.shape[:5])
-    dcorr = float(np.nanmax(np.abs(res.corr - res_k1.corr)))
+                               res_k1.corr.shape[:5])
+    dcorr = float(np.nanmax(np.abs(res_blk.corr - res_k1.corr)))
+    same = np.array_equal(res.corr, res_k1.corr, equal_nan=True)
     log(f"[slice D] same grid, pallas (K1, {warp_score.LAUNCHES} launch(es)):"
         f" central argmax {lag[mi_k1[0]]:+.1f}\" / {lag[mi_k1[1]]:+.1f}\"; "
         f"5-D argmax block {tuple(int(i) for i in arg5)}, K1 "
         f"{tuple(int(i) for i in arg5_k1)}; max |dcorr| block vs K1 "
-        f"{dcorr:.3e}; API call {t_k1:.3f} s")
-    if tuple(mi_k1) != tuple(mi):
-        raise AssertionError(f"slice D: block central argmax {mi} != K1 "
-                             f"{mi_k1}")
+        f"{dcorr:.3e}; auto's hypercube equal to pallas's bit for bit "
+        f"{same}; API call {t_k1:.3f} s")
+    if tuple(mi_k1) != tuple(mi_blk) or tuple(mi_k1) != tuple(mi):
+        raise AssertionError(f"slice D: block central argmax {mi_blk}, K1 "
+                             f"{mi_k1}, auto {mi}")
+    if not same:
+        raise AssertionError("slice D: auto's hypercube differs from "
+                             "pallas's")
 
     engine_log.lines.clear()
     t0 = time.perf_counter()
-    lag, res75 = run(5, "auto")
+    lag, res75 = run(5, "fast")
     t_75 = time.perf_counter() - t0
     mi = check("slice D 75 combos", lag, res75, block_lines)
-    log(f"[slice D] {N}^2, {res75.corr[..., 0].size} candidates (75 combos):"
-        f" block path, central argmax {lag[mi[0]]:+.1f}\" / "
+    est_k1, est_blk = lag_search.estimate_mixed_grid_seconds(
+        MIXED_LAGS ** 2, 75, N, N, order=2, method="correlation")
+    log(f"[slice D] {N}^2, {res75.corr[..., 0].size} candidates (75 combos),"
+        f" fast: block path, central argmax {lag[mi[0]]:+.1f}\" / "
         f"{lag[mi[1]]:+.1f}\", fit {res75.shift_arcsec[0]:+.3f}\"; API call "
         f"{t_75:.3f} s ({t_75 / 75 * 1e3:.1f} ms a combo, against "
-        f"{t_warm / 27 * 1e3:.1f} at 27 combos)")
+        f"{b_warm / 27 * 1e3:.1f} at 27 combos); the router's estimates: "
+        f"K1 {est_k1:.3f} s, block {est_blk:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2259,11 +2308,13 @@ def spice_carrington_limits(hdr_given):
 
 def phase_slice_g(tmp_dir, engine_log):
     """Slice G (module docstring).  Returns the K1 and K2 timings at G3's and
-    G4's operands, each with its launches on that path."""
+    G4's operands, each with its launches on that path, and G3's engine
+    call under "auto" (``"G3 engine call"``: its arguments) for phase R."""
     import numpy as np
     import torch
 
-    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+    from euispice_coreg_tpu_torch.engine import (lag_search, quad_score,
+                                                 warp_score)
     from euispice_coreg_tpu_torch.hdrshift import (
         AlignementSpiceIterativeContextRaster, AlignmentSpice)
     from euispice_coreg_tpu_torch.hdrshift import alignment_spice
@@ -2343,7 +2394,8 @@ def phase_slice_g(tmp_dir, engine_log):
         f"{t_warm:.3f} s")
     log_stages("slice G2", lambda: spice("auto", "corr"))
 
-    # G3: the mixed grid, pallas (K1) then auto (block path)
+    # G3: the mixed grid, pallas (K1), auto (routed to K1) and fast (the
+    # block path); auto's engine call is kept for phase R
     l21 = (np.arange(21) - 10) * 1.0
     mixed = dict(lag_crval1=l21, lag_crval2=l21,
                  lag_cdelt1=[-0.08, 0.0, 0.08], lag_crota=[-0.2, 0.0, 0.2])
@@ -2354,9 +2406,18 @@ def phase_slice_g(tmp_dir, engine_log):
     if k1_launches <= 0:
         raise AssertionError("slice G3 pallas did not launch K1")
     engine_log.lines.clear()
-    res_blk, t_blk = timed_run("auto", **mixed)
+    with record_calls(lag_search, "evaluate_lag_grid") as g3_calls:
+        res_auto, t_auto = timed_run("auto", **mixed)
+    route = [line for line in engine_log.lines
+             if line.startswith("auto route:")]
+    if not (route and route[0].endswith("-> pallas")
+            and "engine path: K1 fused warp+score kernel" in engine_log.lines):
+        raise AssertionError(f"slice G3 auto did not take K1: "
+                             f"{engine_log.lines}")
+    engine_log.lines.clear()
+    res_blk, t_blk = timed_run("fast", **mixed)
     if "engine path: FFT block fast (mixed grid)" not in engine_log.lines:
-        raise AssertionError(f"slice G3 auto did not take the block path: "
+        raise AssertionError(f"slice G3 fast did not take the block path: "
                              f"{engine_log.lines}")
     n_cand = res_k1.corr[..., 0].size
 
@@ -2364,15 +2425,21 @@ def phase_slice_g(tmp_dir, engine_log):
         return tuple(int(i) for i in res.max_index[:5])
 
     rec_k1 = check_spice_recovery("slice G3 pallas", l21, l21, res_k1)
-    rec_blk = check_spice_recovery("slice G3 auto", l21, l21, res_blk)
+    rec_blk = check_spice_recovery("slice G3 fast", l21, l21, res_blk)
+    same = np.array_equal(res_auto.corr, res_k1.corr, equal_nan=True)
     log(f"[slice G3] {n_cand} candidates: pallas (K1, {k1_launches} "
         f"launch(es)) {rec_k1}, 5-D argmax {argmax5(res_k1)}, API call "
-        f"{t_k1:.3f} s; auto (block path) {rec_blk}, 5-D argmax "
-        f"{argmax5(res_blk)}, API call {t_blk:.3f} s; max |dcorr| "
+        f"{t_k1:.3f} s; auto (K1) API call {t_auto:.3f} s, hypercube equal "
+        f"to pallas's bit for bit {same}; {route[0]}; fast (block path) "
+        f"{rec_blk}, 5-D argmax {argmax5(res_blk)}, API call {t_blk:.3f} s; "
+        f"max |dcorr| "
         f"{float(np.nanmax(np.abs(res_k1.corr - res_blk.corr))):.3e}")
     if tuple(res_k1.max_index[:2]) != tuple(res_blk.max_index[:2]):
         raise AssertionError("slice G3: K1 and the block path disagree on "
                              "the CRVAL argmax")
+    if not same:
+        raise AssertionError("slice G3: auto's hypercube differs from "
+                             "pallas's")
 
     # G4: Carrington "fa" on K2, a 1024^2 grid over the raster
     lonlims, latlims = spice_carrington_limits(hdr_given)
@@ -2472,7 +2539,191 @@ def phase_slice_g(tmp_dir, engine_log):
         log(f"[kernels] {kid} slice G {shape}: plain version {plain_ms:.3f} "
             f"ms")
         out[kid].update(slice="G", launches=launches, plain_ms=plain_ms)
+    out["G3 engine call"] = g3_calls[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase R: the "auto" router of mixed grids, K1 against the block path
+# ---------------------------------------------------------------------------
+
+ROUTE_CRVAL = (11, 21, 31, 41, 51)  # CRVAL lags per axis at 1", 3 CROTA
+ROUTE_MARGIN = 0.25  # a route faster than the other by more must be auto's
+
+
+def route_grids():
+    """Phase R's grids on slice A's pair: (label, Alignment lags in arcsec,
+    reprojection order).  The CRVAL1 axis is centred on the injected +8"."""
+    import numpy as np
+
+    def lags(n, **combo):
+        lag = (np.arange(n) - n // 2) * 1.0
+        return dict(lag_crval1=TRUE_SHIFT + lag, lag_crval2=lag, **combo)
+
+    crota = [-0.05, 0.0, 0.05]
+    frac = [-0.005 * CDELT_ARCSEC, 0.0, 0.005 * CDELT_ARCSEC]
+    n = MIXED_LAGS
+    return ([(f"A {k}^2 x 3", lags(k, lag_crota=crota), 2)
+             for k in ROUTE_CRVAL]
+            + [(f"A {n}^2 x 9", lags(n, lag_cdelt1=frac, lag_crota=crota), 2),
+               (f"A {n}^2 x 3, order 0", lags(n, lag_crota=crota), 0)])
+
+
+def best_of(fn, runs=3):
+    """(best seconds over runs 2..``runs``, the last result): host clock
+    around work ending in a synchronize; the first run warms."""
+    import torch
+
+    best, out = None, None
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i:
+            best = dt if best is None else min(best, dt)
+    return best, out
+
+
+def fit_route_constants(rows):
+    """The router's constants fitted to phase R's times (non-negative least
+    squares): K1 t = k0 + rate[order] h w L; the block path t = bL L +
+    C (bc + bp P m^2), C combos of P planes of m x m."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    k2 = [r for r in rows if r["order"] == 2]
+    (k0, rate2), _ = nnls(np.array([[1.0, r["hw"] * r["lags"]] for r in k2]),
+                          np.array([r["k1_s"] for r in k2]))
+    rate = {2: rate2}
+    for order in {r["order"] for r in rows} - {2}:
+        rate[order] = float(np.mean([(r["k1_s"] - k0) / (r["hw"] * r["lags"])
+                                     for r in rows if r["order"] == order]))
+    coef, _ = nnls(np.array([[r["lags"], r["combos"],
+                              r["combos"] * r["planes"] * r["m"] ** 2]
+                             for r in rows]),
+                   np.array([r["blk_s"] for r in rows]))
+    return {"k1_s": k0, "k1_s_per_pixel_lag": rate,
+            "block_s_per_lag": coef[0], "block_s_per_combo": coef[1],
+            "block_s_per_plane_elem": coef[2]}
+
+
+def route_crossover(c, n_combos, h, w, planes, m, order=2):
+    """CRVAL lags per combo where K1's and the block path's estimates meet
+    under the constants ``c`` (:func:`fit_route_constants`' keys): K1 is
+    the cheaper below, the block path above (inf: K1 at every size)."""
+    per_lag = c["k1_s_per_pixel_lag"][order] * h * w - c["block_s_per_lag"]
+    fixed = n_combos * (c["block_s_per_combo"]
+                        + c["block_s_per_plane_elem"] * planes * m * m) \
+        - c["k1_s"]
+    if per_lag <= 0:
+        return float("inf")
+    return max(fixed, 0.0) / (n_combos * per_lag)
+
+
+def phase_route(p_large, p_small, g3_call, engine_log):
+    """Phase R: each grid of :func:`route_grids` and G3's operands, warm
+    under "pallas" (K1) and under the block path at the engine, beside the
+    router's two estimates and the route "auto" took.  Fails where the
+    two routes' CRVAL argmax differ, or where "auto" took the slower route
+    and the two differ by more than :data:`ROUTE_MARGIN`.  Prints the
+    constants fitted to these times and the crossover they imply."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch import Alignment
+    from euispice_coreg_tpu_torch.engine import fast_corr, lag_search
+
+    t_phase = time.perf_counter()
+    calls = []
+    for label, lags, order in route_grids():
+        A = Alignment(p_large, p_small, small_fov_window=0,
+                      large_fov_window=0, reprojection_order=order,
+                      device=DEVICE, **lags)
+        engine_log.lines.clear()
+        with record_calls(lag_search, "evaluate_lag_grid") as rec:
+            A.align_using_helioprojective(return_type="corr")
+        calls.append((label, rec[0], list(engine_log.lines)))
+    calls.append(("G3", g3_call, []))
+
+    rows = []
+    for label, (args, kw), lines in calls:
+        small, l1, l2, l3, l4, l5 = args[0], *args[5:10]
+        h, w = small.shape
+        order, method = kw["order"], kw.get("method", "correlation")
+        n_combos = len(l3) * len(l4) * len(l5)
+        n_lags = len(l1) * len(l2) * n_combos
+        auto = kw["allow_fast"]
+        line = [m for m in lines if m.startswith("auto route:")]
+        if lines and not (line and line[0].endswith(f"-> {auto}")):
+            raise AssertionError(f"phase R {label}: auto's route line does "
+                                 f"not name {auto!r}: {lines}")
+
+        def engine(mode):
+            engine_log.lines.clear()
+            t, cube = best_of(lambda: lag_search.evaluate_lag_grid(
+                *args, **dict(kw, allow_fast=mode)))
+            want = ("engine path: K1 fused warp+score kernel"
+                    if mode == "pallas" else
+                    "engine path: FFT block fast (mixed grid)")
+            if want not in engine_log.lines:
+                raise AssertionError(f"phase R {label} {mode}: no "
+                                     f"{want!r}: {engine_log.lines}")
+            return t, cube
+
+        t_k1, cube_k1 = engine("pallas")
+        t_blk, cube_blk = engine("block")
+        centre = tuple(n // 2 for n in cube_k1.shape[2:5])
+        arg_k1, arg_blk = (
+            np.unravel_index(np.nanargmax(c[(slice(None),) * 2 + centre]),
+                             c.shape[:2]) for c in (cube_k1, cube_blk))
+        est_k1, est_blk = lag_search.estimate_mixed_grid_seconds(
+            len(l1) * len(l2), n_combos, h, w, order=order, method=method)
+        faster = "pallas" if t_k1 < t_blk else "block"
+        ratio = max(t_k1, t_blk) / min(t_k1, t_blk)
+        log(f"[route] {label} ({h}x{w}): {n_lags} lags ({n_combos} combos), K1 "
+            f"{t_k1 * 1e3:.1f} ms (est {est_k1 * 1e3:.1f}), block "
+            f"{t_blk * 1e3:.1f} ms (est {est_blk * 1e3:.1f}); faster "
+            f"{faster} by {ratio:.2f}x, auto -> {auto}; CRVAL argmax K1 "
+            f"{tuple(int(i) for i in arg_k1)}, block "
+            f"{tuple(int(i) for i in arg_blk)}, max |dcorr| "
+            f"{float(np.nanmax(np.abs(cube_k1 - cube_blk))):.2e}")
+        if tuple(arg_k1) != tuple(arg_blk):
+            raise AssertionError(f"phase R {label}: K1 and the block path "
+                                 f"disagree on the CRVAL argmax")
+        if auto != faster and ratio > 1.0 + ROUTE_MARGIN:
+            raise AssertionError(f"phase R {label}: auto took {auto!r}, "
+                                 f"{ratio:.2f}x slower than {faster!r}")
+        rows.append(dict(label=label, order=order, hw=h * w, lags=n_lags,
+                         combos=n_combos, k1_s=t_k1, blk_s=t_blk,
+                         planes=lag_search._block_planes(order, method),
+                         m=fast_corr._fft_size(max(h, w) + 4), auto=auto,
+                         faster=faster))
+        del args, kw, cube_k1, cube_blk
+
+    fit = fit_route_constants(rows)
+    used = {"k1_s": lag_search._EST_K1_S,
+            "k1_s_per_pixel_lag": lag_search._EST_K1_S_PER_PIXEL_LAG,
+            "block_s_per_lag": lag_search._EST_BLOCK_S_PER_LAG,
+            "block_s_per_combo": lag_search._EST_BLOCK_S_PER_COMBO,
+            "block_s_per_plane_elem": lag_search._EST_BLOCK_S_PER_PLANE_ELEM}
+    log("[route] fitted constants: " + ", ".join(
+        f"{k} " + (" / ".join(f"order {o} {v:.4g}" for o, v in
+                              sorted(fit[k].items()))
+                   if isinstance(fit[k], dict) else f"{fit[k]:.4g}")
+        for k in fit))
+    m = fast_corr._fft_size(N + 4)
+    planes = lag_search._block_planes(2, "correlation")
+    cross = {}
+    for name, c in (("in use", used), ("fitted", fit)):
+        cross[name] = {n: route_crossover(c, n, N, N, planes, m)
+                       for n in (3, 27)}
+        log(f"[route] crossover at {N}^2, order 2 ({name} constants): "
+            + ", ".join(f"{n} combos {v:.0f} CRVAL lags a combo "
+                        f"({v ** 0.5:.1f}^2)" for n, v in cross[name].items()))
+    log(f"[route] phase R {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "fit": fit, "crossover": cross}
 
 
 # ---------------------------------------------------------------------------
@@ -2994,6 +3245,11 @@ def main():
         # slice G: SPICE (G3 and G4 set their kernel's count to 0 first)
         g_timings = phase_slice_g(tmp_dir, engine_log)
 
+        # phase R: the "auto" router of mixed grids on slice A's pair and
+        # G3's operands (K1 launched to compare routes, not counted)
+        route = phase_route(p_large, p_small,
+                            g_timings.pop("G3 engine call"), engine_log)
+
         # slice H: tile-compressed files (sets K1's count to 0 first)
         phase_slice_h(p_large, p_small, tmp_dir, engine_log)
 
@@ -3016,7 +3272,11 @@ def main():
         f"pallas: slice C {min(c_auto['auto']):.3f} / "
         f"{min(c_auto['pallas']):.3f} s, coarse {min(coarse['auto']):.3f} / "
         f"{min(coarse['pallas']):.3f} s (best of 2); coarse hybrid picker "
-        f"{coarse['hybrid_pick_ms']:.1f} ms")
+        f"{coarse['hybrid_pick_ms']:.1f} ms; phase R: auto took the faster "
+        f"route on {sum(r['auto'] == r['faster'] for r in route['rows'])} "
+        f"of {len(route['rows'])} grids, crossover at {N}^2 (fitted) "
+        + " / ".join(f"{v:.0f}" for v in route["crossover"]["fitted"].values())
+        + " CRVAL lags a combo at 3 / 27 combos")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked
     # sums), so library_ms is null

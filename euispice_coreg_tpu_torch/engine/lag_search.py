@@ -19,7 +19,12 @@ submap.  :func:`evaluate_lag_grid` picks the path:
 
 ``mesh`` (a sequence of devices, :mod:`..utils.mesh`) is passed on to every
 path: K1 and the gather split the lags over the devices, the FFT paths the
-surface planes.  The JAX package's TPU workarounds are not carried over
+surface planes.
+
+:func:`route_mixed_grid` is ``Alignment``'s ``"auto"`` choice for mixed
+grids: on a CUDA device K1 or the block path by a cost model measured on
+the card, elsewhere the JAX package's rule (the block path above 2000
+candidates).  The JAX package's TPU workarounds are not carried over
 (the gather-free select and upsample samplers, chunk retries, probe and
 plan caches).
 """
@@ -36,6 +41,112 @@ from . import warp_score
 
 # lag vector layout along the last axis of the (L, 5) lag matrix
 D_CRVAL1, D_CRVAL2, D_CDELT1, D_CDELT2, D_CROTA = range(5)
+
+
+# The "auto" router's cost model of a mixed grid on a CUDA device
+# (:func:`estimate_mixed_grid_seconds`), fitted by chip_smoke.py phase R on
+# one NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md section 6:
+# 2048^2 at 11^2-51^2 CRVAL lags x 3 combos, 21^2 x 9 combos and at order
+# 0, and a 1024 x 192 SPICE raster at 21^2 x 9).  It steers the
+# choice between K1 and the block path only, never a reported number.
+#
+# K1 (lag_search_mode="pallas"): seconds per pixel-lag at the block path's
+# orders (7.72e-12 at order 2, 5.98e-12 at order 0), and what the engine
+# spends around the launch (the lag table, the centred canvas, the
+# read-back).
+_EST_K1_S_PER_PIXEL_LAG = {0: 6.0e-12, 2: 7.7e-12}
+_EST_K1_S = 0.0025
+# The block path (lag_search_mode="fast"): per combo, the warp and a fixed
+# cost, and the float64 surfaces at 5.13e-11 s per element of the m x m
+# forward and inverse transform planes (:func:`_block_planes`); per lag,
+# the host displacement chain, the read-out and the host combine.
+_EST_BLOCK_S_PER_COMBO = 0.005
+_EST_BLOCK_S_PER_PLANE_ELEM = 5.1e-11
+_EST_BLOCK_S_PER_LAG = 2.3e-6
+# Above this many candidates the JAX package sends a mixed grid to the
+# block path (its alignment.py:603, a TPU choice); the rule off a card.
+JAX_BLOCK_MIN_LAGS = 2000
+
+
+def _block_planes(order, method):
+    """Forward and inverse transform planes of one block-path combo: the
+    g and r fields (:func:`fast_corr._fields`) and the product surfaces."""
+    from . import fast_corr
+
+    nt = len(fast_corr._tap_offsets(order)) ** 2
+    n_g = 3 if method == "correlation" else 6
+    score = "pearson" if method == "correlation" else "residus"
+    return n_g + 1 + nt + nt * (nt + 1) // 2 + fast_corr._n_surfaces(order,
+                                                                     score)
+
+
+def estimate_mixed_grid_seconds(n_crval, n_combos, h, w, *, order, method,
+                                n_shards=1):
+    """(K1 seconds, block-path seconds) of a mixed grid of ``n_crval`` CRVAL
+    lags per (cdelt1, cdelt2, crota) combo and ``n_combos`` combos, for an
+    h x w small image at spline order 0 or 2 on a CUDA device (the
+    constants above, measured on an H100).  The block path's transforms
+    are m x m with m the FFT size of the longer side (the CRVAL shift's few
+    pixels left out).  A mesh of ``n_shards`` devices divides K1's lags and
+    the block path's surface planes; K1's constant, the warp and the host
+    terms stay whole (not measured across cards)."""
+    from . import fast_corr
+
+    n_lags = n_crval * n_combos
+    rate = _EST_K1_S_PER_PIXEL_LAG[order]
+    t_k1 = _EST_K1_S + rate * h * w * n_lags / n_shards
+    m = fast_corr._fft_size(max(h, w) + 4)
+    t_blk = _EST_BLOCK_S_PER_LAG * n_lags + n_combos * (
+        _EST_BLOCK_S_PER_COMBO + _EST_BLOCK_S_PER_PLANE_ELEM
+        * _block_planes(order, method) * m * m / n_shards)
+    return t_k1, t_blk
+
+
+def route_mixed_grid(n_crval1, n_crval2, n_combos, h, w, *, order, method,
+                     device_type, n_shards=1, ref_shape=None):
+    """``allow_fast`` for a mixed grid (cdelt or crota lags) under
+    ``lag_search_mode="auto"``: ``"pallas"`` (K1), ``"block"`` (the block
+    path) or True (the exact engine).
+
+    Off a CUDA device: the JAX package's rule, the block path above
+    :data:`JAX_BLOCK_MIN_LAGS` candidates, so the CPU keeps its routes.  On
+    a CUDA device, where both K1 (:func:`warp_score.k1_applies`; the
+    reference's shape ``ref_shape`` defaults to the small image's) and the
+    block path (correlation or ``residus_masked`` at order 0 or 2) apply,
+    the cheaper by :func:`estimate_mixed_grid_seconds`: K1 costs per
+    pixel-lag, the block path per combo, so they cross at a number of CRVAL
+    lags per combo.  A mesh of ``n_shards`` devices splits both (K1 the
+    lags, the block path the surface planes), so they are compared per
+    shard.  Where only K1 applies, K1; where only the block path, the JAX
+    package's rule; where neither, the exact engine.  K1 is never chosen
+    where it declines.  Logs the decision."""
+    n_lags = n_crval1 * n_crval2 * n_combos
+    jax_rule = "block" if n_lags > JAX_BLOCK_MIN_LAGS else True
+    grid = (f"{n_combos} combos x {n_crval1 * n_crval2} crval lags, "
+            f"{h}x{w}")
+    if device_type != "cuda":
+        logger.info("auto route: %d candidates, the JAX package's rule off "
+                    "a card (block above %d) (%s) -> %s", n_lags,
+                    JAX_BLOCK_MIN_LAGS, grid, jax_rule)
+        return jax_rule
+    k1_ok = warp_score.k1_applies(method, order, (h, w), ref_shape or (h, w))
+    block_ok = method in ("correlation", "residus_masked") and order in (0, 2)
+    if k1_ok and block_ok:
+        t_k1, t_blk = estimate_mixed_grid_seconds(
+            n_crval1 * n_crval2, n_combos, h, w, order=order, method=method,
+            n_shards=n_shards)
+        route = "pallas" if t_k1 <= t_blk else "block"
+        logger.info("auto route: K1 est %.1f ms vs block est %.1f ms (%s, "
+                    "%d shard(s)) -> %s", t_k1 * 1e3, t_blk * 1e3, grid,
+                    n_shards, route)
+        return route
+    route = "pallas" if k1_ok else (jax_rule if block_ok else True)
+    logger.info("auto route: %s (%s, %s at order %d) -> %s",
+                "K1 alone applies" if k1_ok else
+                "the block path alone applies" if block_ok else
+                "neither K1 nor the block path applies", grid, method, order,
+                route)
+    return route
 
 
 def apply_lag_to_params(base: dict, d):

@@ -214,6 +214,16 @@ def _launch(canvas, ref, lon, lat, table, *, pad, order, kind):
     return out
 
 
+def k1_applies(method, order, small_shape, ref_shape) -> bool:
+    """Whether K1 computes this search: masked Pearson (``correlation``) at
+    spline order 0-2, with the reference on the small image's grid.
+    :func:`evaluate_lag_grid_warp` declines everything else, and the
+    ``"auto"`` router (``lag_search.route_mixed_grid``) asks the same
+    question."""
+    return (method == "correlation" and order in (0, 1, 2)
+            and tuple(ref_shape) == tuple(small_shape))
+
+
 def evaluate_lag_grid_warp(
     small_img, ref_img, lon, lat, base_params,
     lag_crval1, lag_crval2, lag_cdelt1, lag_cdelt2, lag_crota,
@@ -233,7 +243,7 @@ def evaluate_lag_grid_warp(
     with fewer lags may sum its float64 partials in another order
     (:func:`launch_geometry`), so r moves at rounding only.
     """
-    if method != "correlation" or order not in (0, 1, 2):
+    if not k1_applies(method, order, np.shape(small_img), np.shape(ref_img)):
         return None
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
@@ -246,8 +256,6 @@ def evaluate_lag_grid_warp(
 
     small = to_tensor(small_img, device=dev, dtype=dt)
     ref = to_tensor(ref_img, device=dev, dtype=dt)
-    if ref.shape != small.shape:
-        return None
     h, w = small.shape
     lon_t = to_tensor(lon, device=dev, dtype=dt)
     lat_t = to_tensor(lat, device=dev, dtype=dt)

@@ -24,6 +24,7 @@ the CPU).
 from __future__ import annotations
 
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -39,17 +40,42 @@ from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from .results import AlignmentResults
 
 
+class HiddenPrints:
+    """Context manager silencing stdout (the upstream reference's public
+    helper; it wraps sunpy's reprojection chatter with it)."""
+
+    def __enter__(self):
+        self._original_stdout = sys.stdout
+        sys.stdout = open(os.devnull, "w")
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        sys.stdout.close()
+        sys.stdout = self._original_stdout
+
+
+def divide_chunks(l, n):  # noqa: E741 - the reference's signature
+    """Yield successive n-sized chunks of l (the upstream reference's
+    public helper)."""
+    for i in range(0, len(l), n):
+        yield l[i:i + n]
+
+
 class Alignment:
     """Co-alignment of a small-FOV image against a reference with known
     pointing, over a 5-D lag hypercube (crval1/2, cdelt1/2, crota).
 
     ``lag_search_mode``:
 
-    * "auto" (default): CRVAL-only grids use the FFT fast path; mixed grids
-      of more than 2000 candidates the block path (one warp per
-      cdelt/crota combo, the CRVAL sub-grid on FFT surfaces; correlation
-      and ``residus_masked``, reprojection order 0 or 2), smaller ones and
-      everything the block path declines the exact per-lag engine.  On a
+    * "auto" (default): CRVAL-only grids use the FFT fast path.  Mixed
+      grids (cdelt or crota lags) go through
+      ``engine.lag_search.route_mixed_grid``: on a CUDA device, where both
+      apply (correlation at reprojection order 0 or 2), the cheaper of K1
+      and the block path (one warp per cdelt/crota combo, the CRVAL
+      sub-grid on FFT surfaces) by a cost model measured on an H100, K1
+      where it alone applies, and for ``residus_masked`` the block path
+      above 2000 candidates; on the CPU the block path above 2000
+      candidates, as in the JAX package.  Everything else, and what the
+      block path declines, takes the exact per-lag engine.  On a
       Carrington grid: the per-combo FFT path, else the
       quadratic-conjugation select path (on a CUDA device on tile-FFT
       surfaces and the hybrid where they promise to beat K2, else on kernel
@@ -439,7 +465,8 @@ class Alignment:
 
         l1, l2, l3, l4, l5 = self._lags_deg(wrap=True)
         n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)
-        allow_fast = self._allow_fast_mode(n_lags)
+        allow_fast = self._allow_fast_mode((l1, l2, l3, l4, l5),
+                                            self.data_small.shape)
         logger.info("solar-surface (sunpy-equivalent) search: %d candidates, "
                     "mode=%s", n_lags * len(self.lag_solar_r),
                     self.lag_search_mode)
@@ -615,7 +642,8 @@ class Alignment:
 
         l1, l2, l3, l4, l5 = self._lags_deg(wrap=wrap)
         n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)
-        allow_fast = self._allow_fast_mode(n_lags)
+        allow_fast = self._allow_fast_mode((l1, l2, l3, l4, l5),
+                                            self.data_small.shape)
         logger.info("lag search: %d candidates, mode=%s, order=%d",
                     n_lags * len(self.lag_solar_r), self.lag_search_mode, self.order)
         with timed(f"lag-grid search ({n_lags} candidates)"), \
@@ -642,8 +670,10 @@ class Alignment:
 
         return obs.console_progress_bar(self.display_progress_bar)
 
-    def _allow_fast_mode(self, n_lags):
-        """Map ``lag_search_mode`` to the engine's ``allow_fast`` knob."""
+    def _allow_fast_mode(self, lags, shape):
+        """Map ``lag_search_mode`` to the engine's ``allow_fast`` knob for
+        the lag axes ``lags`` (l1..l5) of a search on a small image of
+        ``shape`` (h, w)."""
         if self.lag_search_mode == "exact":
             return False
         if self.lag_search_mode == "pallas":
@@ -652,4 +682,14 @@ class Alignment:
             # tile_fft is a Carrington select mode; projected searches use
             # the FFT/block fast paths
             return "block"
-        return "block" if n_lags > 2000 else True  # auto
+        # auto
+        l1, l2, l3, l4, l5 = lags
+        n_combos = len(l3) * len(l4) * len(l5)
+        if n_combos == 1 and not (l3[0] or l4[0] or l5[0]):
+            # a CRVAL-only grid: the FFT path at order 0/2, whatever the knob
+            return ("block" if len(l1) * len(l2)
+                    > lag_search.JAX_BLOCK_MIN_LAGS else True)
+        return lag_search.route_mixed_grid(
+            len(l1), len(l2), n_combos, *shape, order=self.order,
+            method=self.method, device_type=self.device.type,
+            n_shards=len(self.mesh) if self.mesh else 1)
