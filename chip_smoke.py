@@ -173,7 +173,19 @@ Phases (each prints its own lines; any failure exits nonzero):
                (use_device_mesh=True: no mesh on one card, slice A's
                hypercube bit-identical).  Each sharded call's warm time is
                printed beside the unsharded call's.
-13. summary -- the kernels line (JSON, K1 and K2, with every timing against
+13. phase X -- the port's examples as a user runs them, in-process on the
+               card at their own sizes (examples/*_torch.py main): the
+               demo (13x13 CRVAL on a 96^2/196^2 pair, then its Carrington
+               leg on a 128^2 grid), align_hri_fsi's synthetic pair,
+               align_spice_synras (synthetic raster, then AlignmentSpice),
+               jitter_movie (6 frames), and align_hri_fsi's real-file
+               branch on an N^2 pair written RICE_1 as slice H's, +24" /
+               +6" injected.  Each twice (first and warm wall time), with
+               K1's and K2's launches and the engine's route lines.  Each
+               must recover its injected shift (the demo prints OK; 1",
+               SPICE (2", 1"), jitter 0.5" a frame), and the demo's
+               Carrington leg must launch K2 where the route is K2.
+14. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
 """
@@ -236,6 +248,21 @@ def kernel_bound(kernel, n_ref, n_lags, n_summed, nbytes):
 CHECK_STRIDE = 37  # a timed launch is checked on every 37th lag
 
 
+def compare_sums(got, want):
+    """Kernel sums ``got`` against the plain version's ``want`` (numpy,
+    lags x sums): (the largest error relative to each sum's largest
+    magnitude, r's largest error, r undefined at the same lags)."""
+    import numpy as np
+
+    from euispice_coreg_tpu_torch.engine import warp_score
+
+    sum_err = float(np.max(np.abs(got - want) / np.max(np.abs(want), axis=0)))
+    r_got = warp_score.pearson_from_sums(got)
+    r_want = warp_score.pearson_from_sums(want)
+    same_nan = np.array_equal(np.isnan(r_got), np.isnan(r_want))
+    return sum_err, float(np.nanmax(np.abs(r_got - r_want))), same_nan
+
+
 def time_against_bound(label, kernel, launch, plain, operands, n_ref,
                        repeat):
     """Times ``launch`` (CUDA events), logs ms, pixel-lags/s, the bound and
@@ -273,12 +300,9 @@ def time_against_bound(label, kernel, launch, plain, operands, n_ref,
     rows = sorted(set(range(0, n_lags, CHECK_STRIDE)) | {best})
     want = plain(table[rows]).cpu().numpy()
     got = got[rows]
-    sum_err = float(np.max(np.abs(got - want) / np.max(np.abs(want), axis=0)))
-    r_got = warp_score.pearson_from_sums(got)
-    r_want = warp_score.pearson_from_sums(want)
-    same_nan = np.array_equal(np.isnan(r_got), np.isnan(r_want))
-    r_err = float(np.nanmax(np.abs(r_got - r_want)))
-    same_best = int(np.nanargmax(r_want)) == rows.index(best)
+    sum_err, r_err, same_nan = compare_sums(got, want)
+    same_best = int(np.nanargmax(warp_score.pearson_from_sums(want))) \
+        == rows.index(best)
     log(f"[kernels] {label}: {len(rows)} lags against the plain version "
         f"({int(np.sum(want[:, 0] > 0))} with pixels): sums {sum_err:.2e}, "
         f"|dr| {r_err:.2e} (tol {TOL:g}), best lag {best} best there too "
@@ -291,16 +315,22 @@ def time_against_bound(label, kernel, launch, plain, operands, n_ref,
 
 
 def scene(u, v):
-    """Smooth deterministic 'sun': Gaussian blobs over (u, v) in degrees."""
+    """Smooth deterministic 'sun': Gaussian blobs over (u, v) in degrees,
+    numpy arrays or torch tensors (computed where they lie)."""
     import numpy as np
 
-    out = np.full(u.shape, 100.0)
+    if isinstance(u, np.ndarray):
+        out, exp = np.full(u.shape, 100.0), np.exp
+    else:
+        import torch
+
+        out, exp = torch.full_like(u, 100.0), torch.exp
     rng = np.random.default_rng(7)
     for _ in range(40):
         cx, cy = rng.uniform(-0.1, 0.1, size=2)
         w = rng.uniform(0.004, 0.02)
         a = rng.uniform(0.5, 3.0)
-        out += a * np.exp(-(((u - cx) ** 2) + ((v - cy) ** 2)) / (2 * w * w))
+        out += a * exp(-(((u - cx) ** 2) + ((v - cy) ** 2)) / (2 * w * w))
     return out
 
 
@@ -574,11 +604,16 @@ def phase_kernels(device):
 # phases 4-5: the public API
 # ---------------------------------------------------------------------------
 
-def write_pair(tmp_dir):
-    """The headline pair: the small image rendered through its true
-    pointing, handed over with CRVAL1 mispointed by -8"; the reference is
-    the scene on the small header's own grid (correct under that WCS)."""
+def write_pair(tmp_dir, shift=(TRUE_SHIFT, 0.0), noise=0.0, rice=False):
+    """The headline pair, rendered on DEVICE: the small image through its
+    true pointing, handed over with CRVAL1/2 mispointed by -``shift``
+    (arcsec); the reference is the scene on the small header's own grid
+    (correct under that WCS).  ``noise``: the sigma of seeded normal noise
+    added to both.  ``rice``: each written as EUI files are distributed,
+    an empty primary HDU then RICE_1 float32 row tiles as slice H's; else
+    as one primary HDU.  Returns the two paths and the header."""
     import numpy as np
+    import torch
 
     from euispice_coreg_tpu_torch.core import wcs
     from euispice_coreg_tpu_torch.core.header import Header, pc_from_crota
@@ -591,13 +626,10 @@ def write_pair(tmp_dir):
             "crpix1": (N + 1) / 2, "crpix2": (N + 1) / 2,
             "cdelt1": cdelt, "cdelt2": cdelt,
             "pc11": pc[0], "pc12": pc[1], "pc21": pc[2], "pc22": pc[3]}
-    x, y = coords.pixel_grid(N, N)
-    lon_t, lat_t = wcs.tan_pixel_to_world(base, x, y, xp=np)
-    small = scene(lon_t, lat_t)
-    given = dict(base, crval1=base["crval1"] - TRUE_SHIFT / 3600.0)
-    lon, lat = wcs.tan_pixel_to_world(given, x, y, xp=np)
-    ref = scene(lon, lat)
-
+    given = dict(base, crval1=base["crval1"] - shift[0] / 3600.0,
+                 crval2=base["crval2"] - shift[1] / 3600.0)
+    x, y = (torch.as_tensor(a, device=DEVICE) for a in coords.pixel_grid(N, N))
+    rng = np.random.default_rng(13)
     hdr = Header({
         "NAXIS1": N, "NAXIS2": N,
         "CRVAL1": given["crval1"] * 3600.0, "CRVAL2": given["crval2"] * 3600.0,
@@ -607,13 +639,21 @@ def write_pair(tmp_dir):
         "CTYPE1": "HPLN-TAN", "CTYPE2": "HPLT-TAN", "CROTA": 0.75,
         "PC1_1": pc[0], "PC1_2": pc[1], "PC2_1": pc[2], "PC2_2": pc[3],
     })
-    p_large = os.path.join(tmp_dir, "large.fits")
-    p_small = os.path.join(tmp_dir, "small.fits")
-    fits.write(p_large, [fits.PrimaryHDU(data=ref.astype(np.float32),
-                                         header=hdr)])
-    fits.write(p_small, [fits.PrimaryHDU(data=small.astype(np.float32),
-                                         header=hdr)])
-    return p_large, p_small, hdr
+    paths = []
+    for name, params in (("large", given), ("small", base)):
+        data = scene(*wcs.tan_pixel_to_world(params, x, y)).cpu().numpy()
+        if noise:
+            data += rng.normal(0.0, noise, data.shape)
+        data = data.astype(np.float32)
+        path = os.path.join(tmp_dir, f"{name}.fits")
+        if rice:
+            fits.write(path, [fits.PrimaryHDU(), fits.CompImageHDU(
+                data=data, header=hdr, name=name.upper(),
+                compression_type="RICE_1", **H_COMPRESSION)])
+        else:
+            fits.write(path, [fits.PrimaryHDU(data=data, header=hdr)])
+        paths.append(path)
+    return paths[0], paths[1], hdr
 
 
 def top2_margin(corr):
@@ -3172,7 +3212,232 @@ def phase_mesh(calls, tmp_dir, card, engine_log):
     return timings
 
 
+# ---------------------------------------------------------------------------
+# phase X: the port's examples, as a user runs them
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(REPO, "examples")
+X_SHIFT = (24.0, 6.0)   # the real-file run's pointing error, inside the
+                        # example's grid (15..34" x -4..16")
+X_ROUTE_LINES = ("engine path:", "auto route:", "tile-FFT",
+                 "carrington select:")
+
+
+def run_example(label, module, argv, out_dir, engine_log):
+    """``module.main(argv + [out_dir/first])`` and again into
+    ``out_dir/warm``, in-process on DEVICE.  K1's and K2's counts are set
+    to 0 just before the first run and read just after, and their
+    launches recorded.  Prints both wall times, the launches and the
+    engine's route lines of the first run and the warm run's stage clocks,
+    then holds every recorded launch against its plain version
+    (check_example_launches).  Returns (first run's output, {"first_s",
+    "warm_s", "K1", "K2", "route", "printed", "stages", "timings"})."""
+    import io
+
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+    from euispice_coreg_tpu_torch.utils import obs
+
+    runs = {}
+    for run in ("first", "warm"):
+        engine_log.lines.clear()
+        warp_score.LAUNCHES = 0
+        quad_score.LAUNCHES = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), \
+                obs.collect_stages() as stages, \
+                record_calls(warp_score, "warp_score_sums") as k1_calls, \
+                record_calls(quad_score, "quad_score_sums") as k2_calls:
+            out = module.main(argv + ["--device", DEVICE,
+                                      os.path.join(out_dir, run)])
+            torch.cuda.synchronize()
+        runs[run] = (time.perf_counter() - t0, out, warp_score.LAUNCHES,
+                     quad_score.LAUNCHES, list(engine_log.lines),
+                     printed.getvalue().strip().splitlines(), stages,
+                     {"K1": k1_calls, "K2": k2_calls})
+    first_s, out, k1, k2, lines, printed, _, calls = runs["first"]
+    warm_s, stages = runs["warm"][0], runs["warm"][-2]
+    route = [ln for ln in lines if ln.startswith(X_ROUTE_LINES)]
+    log(f"[phase X] {label}: first {first_s:.3f} s, warm {warm_s:.3f} s; "
+        f"K1 launches {k1}, K2 launches {k2}; route: "
+        f"{' | '.join(dict.fromkeys(route))}; warm stages (ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stages.items()))
+    timings = {kid: check_example_launches(label, kid, calls[kid], n)
+               for kid, n in (("K1", k1), ("K2", k2)) if calls[kid]}
+    return out, {"first_s": first_s, "warm_s": warm_s, "K1": k1, "K2": k2,
+                 "route": route, "printed": printed, "stages": stages,
+                 "timings": timings}
+
+
+def check_example_launches(label, kid, calls, launches):
+    """Every launch of kernel ``kid`` recorded in an example's first run,
+    replayed on the same card tensors through the kernel and its plain
+    version: every lag's sums within TOL of each sum's largest magnitude,
+    r within TOL and undefined at the same lags.  The first call is then
+    timed against its bound (time_against_bound) and its plain version.
+    Returns the timing entry ("slice": "X")."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.engine import quad_score, warp_score
+
+    mod, fn = {"K1": (warp_score, "warp_score_sums"),
+               "K2": (quad_score, "quad_score_sums")}[kid]
+    launch = getattr(mod, fn)
+    plain = getattr(mod, fn + "_reference")
+    errs = []
+    for args, kw in calls:
+        got = launch(*args, **kw).cpu().numpy()
+        want = plain(*args, **kw).cpu().numpy()
+        errs.append(compare_sums(got, want))
+    sum_err = max(e[0] for e in errs)
+    r_err = max(e[1] for e in errs)
+    same_nan = all(e[2] for e in errs)
+    n_lags = sum(c[0][-1].shape[0] for c in calls)
+    log(f"[kernels] {kid} slice X {label}: {len(calls)} launch(es), all "
+        f"{n_lags} lags against the plain version: sums {sum_err:.2e}, "
+        f"|dr| {r_err:.2e} (tol {TOL:g}), r undefined at the same lags "
+        f"{same_nan}")
+    if not (sum_err <= TOL and r_err <= TOL and same_nan):
+        raise AssertionError(f"phase X {label}: {kid} disagrees with its "
+                             f"plain version")
+    args, kw = calls[0]
+    ref = args[1]
+    kernel = "K2" if kid == "K2" else f"K1 {kw['kind']}"
+    shape = "x".join(str(n) for n in ref.shape)
+    out = time_against_bound(
+        f"{kid} slice X {label} {shape} x {args[-1].shape[0]} lags", kernel,
+        lambda: launch(*args, **kw), lambda t: plain(*args[:-1], t, **kw),
+        args, int(torch.isfinite(ref).sum()), repeat=3)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), repeat=1)
+    log(f"[kernels] {kid} slice X {label} {shape}: plain version "
+        f"{plain_ms:.3f} ms")
+    out.update(slice="X", example=label, launches=launches,
+               plain_ms=plain_ms, max_abs_err=max(out["max_abs_err"], r_err),
+               max_sum_err=sum_err)
+    return out
+
+
+def check_shift(label, shift, truth, bound):
+    """``shift`` within ``bound`` (arcsec, per axis) of ``truth``."""
+    import numpy as np
+
+    err = np.abs(np.subtract(shift[:2], truth))
+    log(f"[phase X] {label}: recovered ({shift[0]:+.3f}\", "
+        f"{shift[1]:+.3f}\"), injected ({truth[0]:+.3f}\", "
+        f"{truth[1]:+.3f}\"), bound {bound}\"")
+    if not np.all(err < bound):
+        raise AssertionError(f"phase X {label}: missed the injected shift")
+
+
+def phase_examples(tmp_dir, engine_log):
+    """Phase X: the four examples of the port (examples/*_torch.py), each
+    through its ``main`` at its own sizes, then align_hri_fsi_torch's
+    real-file branch on an N^2 RICE_1 pair (write_pair, mispointed by
+    X_SHIFT, noise sigma H_NOISE).  Each must pass its own recovery check;
+    the demo's Carrington leg must run on K2 where the card's router sends
+    it there, and on the route it names otherwise; every launch of K1 or
+    K2 must agree with its plain version.  Returns each run's times,
+    launches and kernel timings."""
+    sys.path.insert(0, EXAMPLES)
+    import align_hri_fsi_torch
+    import align_spice_synras_torch
+    import demo_synthetic_torch
+    import jitter_movie_torch
+
+    x_dir = os.path.join(tmp_dir, "phase_x")
+    t_phase = time.perf_counter()
+    runs = {}
+
+    out, runs["demo_synthetic"] = run_example(
+        "demo_synthetic", demo_synthetic_torch, [],
+        os.path.join(x_dir, "demo"), engine_log)
+    r = runs["demo_synthetic"]
+    log(f"[phase X] demo_synthetic printed: {' | '.join(r['printed'][-3:])}")
+    if not out["ok"] or r["printed"][-1] != "OK":
+        raise AssertionError("phase X demo_synthetic: MISMATCH")
+    check_shift("demo_synthetic helioprojective",
+                out["helioprojective"].shift_arcsec,
+                demo_synthetic_torch.TRUE_SHIFT, 1.0)
+    check_shift("demo_synthetic carrington", out["carrington"].shift_arcsec,
+                demo_synthetic_torch.TRUE_SHIFT, 1.0)
+    # the Carrington leg: the select path on K2 unless tile-FFT took the
+    # whole set (or the per-combo FFT path ran, which launches neither)
+    carr = [ln for ln in r["route"] if "carrington" in ln
+            or "tile-FFT" in ln]
+    on_k2 = ("engine path: carrington linearized select" in carr
+             and not any(ln.startswith("carrington select: tile-FFT "
+                                       "surfaces") for ln in carr))
+    log(f"[phase X] demo_synthetic Carrington leg: "
+        f"{'K2' if on_k2 else 'not K2'} ({' | '.join(carr)}), K2 launches "
+        f"{r['K2']}")
+    if on_k2 != (r["K2"] > 0) or not carr:
+        raise AssertionError(f"phase X demo_synthetic: the Carrington leg's "
+                             f"route {carr} and K2's launches {r['K2']} "
+                             f"disagree")
+    if "engine path: FFT fast (crval grid)" not in r["route"]:
+        raise AssertionError("phase X demo_synthetic: the helioprojective "
+                             "leg left the FFT path")
+
+    out, runs["align_hri_fsi"] = run_example(
+        "align_hri_fsi (synthetic)", align_hri_fsi_torch, [],
+        os.path.join(x_dir, "hri_fsi"), engine_log)
+    check_shift("align_hri_fsi (synthetic)", out["results"].shift_arcsec,
+                align_hri_fsi_torch.SYNTHETIC_SHIFT, 1.0)
+
+    out, runs["align_spice_synras"] = run_example(
+        "align_spice_synras", align_spice_synras_torch, [],
+        os.path.join(x_dir, "spice"), engine_log)
+    # half a raster step (4") along the raster, 1" across
+    check_shift("align_spice_synras", out["results"].shift_arcsec,
+                align_spice_synras_torch.TRUE_SHIFT, (2.0, 1.0))
+
+    out, runs["jitter_movie"] = run_example(
+        "jitter_movie", jitter_movie_torch, [],
+        os.path.join(x_dir, "jitter"), engine_log)
+    if sorted(out["results"]) != [1, 2, 3, 4, 5]:
+        raise AssertionError(f"phase X jitter_movie: frames "
+                             f"{sorted(out['results'])} aligned")
+    for k, res in sorted(out["results"].items()):
+        check_shift(f"jitter_movie frame {k}", res.shift_arcsec,
+                    out["jitter"][k], 0.5)
+
+    t0 = time.perf_counter()
+    real_dir = os.path.join(x_dir, "real")
+    os.makedirs(real_dir)
+    p_fsi, p_hri, _ = write_pair(real_dir, shift=X_SHIFT, noise=H_NOISE,
+                                 rice=True)
+    log(f"[phase X] real-file pair: {N}^2 RICE_1, "
+        f"{os.path.getsize(p_fsi) / 2**20:.2f} + "
+        f"{os.path.getsize(p_hri) / 2**20:.2f} MiB, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out, runs["align_hri_fsi real"] = run_example(
+        f"align_hri_fsi ({N}^2 RICE_1 files)", align_hri_fsi_torch,
+        [p_fsi, p_hri], os.path.join(x_dir, "hri_fsi_real"), engine_log)
+    res = out["results"]
+    check_shift(f"align_hri_fsi ({N}^2 RICE_1 files)", res.shift_arcsec,
+                X_SHIFT, 1.0)
+    if out["window"] != -1 or "engine path: FFT fast (crval grid)" not in \
+            runs["align_hri_fsi real"]["route"]:
+        raise AssertionError("phase X real-file run: not the last HDU on "
+                             "the FFT path")
+    from euispice_coreg_tpu_torch.io import fits
+
+    back = fits.open(out["paths"]["aligned"])[-1]
+    if not (isinstance(back, fits.CompImageHDU)
+            and back.header["ZCMPTYPE"] == "RICE_1"):
+        raise AssertionError("phase X real-file run: the aligned file is "
+                             "not RICE_1")
+    if "matplotlib" in sys.modules:
+        raise AssertionError("phase X imported matplotlib")
+    log(f"[phase X] the phase {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, REPO)
     import torch
@@ -3257,14 +3522,20 @@ def main():
         # before each sharded call and read just after)
         mesh_timings = phase_mesh(mesh_calls, tmp_dir, card, engine_log)
         del mesh_calls
-    k1_timings += [g_timings["K1"], mesh_timings["K1"]]
-    k2_timings += [g_timings["K2"], mesh_timings["K2"]]
+
+        # phase X: the port's examples (K1's and K2's counts set to 0 just
+        # before each run and read just after)
+        examples = phase_examples(tmp_dir, engine_log)
+    x_timings = {kid: [r["timings"][kid] for r in examples.values()
+                       if kid in r["timings"]] for kid in ("K1", "K2")}
+    k1_timings += [g_timings["K1"], mesh_timings["K1"], *x_timings["K1"]]
+    k2_timings += [g_timings["K2"], mesh_timings["K2"], *x_timings["K2"]]
 
     log(f"[summary] card {card}; nvcc K1 {build_s['warp_score']:.2f} s, "
         f"K2 {build_s['quad_score']:.2f} s; K1 at 1323 / 11907 / slice G "
-        f"/ 2 shards lags " + " / ".join(f"{t['ms']:.3f}" for t in k1_timings)
-        + " ms, K2 at 441 / 14641 / 14641 wide / slice G / 2 shards lags "
-        + " / ".join(
+        f"/ 2 shards / phase X lags " + " / ".join(
+            f"{t['ms']:.3f}" for t in k1_timings) + " ms, K2 at 441 / 14641 "
+        "/ 14641 wide / slice G / 2 shards / phase X lags " + " / ".join(
             f"{t['ms']:.3f}" for t in k2_timings) + " ms; slice I tile-FFT "
         f"select {slice_i['tile_s'] * 1e3:.1f} ms vs K2 select "
         f"{slice_i['k2_s'] * 1e3:.1f} ms, I1 API warm "
@@ -3276,7 +3547,10 @@ def main():
         f"route on {sum(r['auto'] == r['faster'] for r in route['rows'])} "
         f"of {len(route['rows'])} grids, crossover at {N}^2 (fitted) "
         + " / ".join(f"{v:.0f}" for v in route["crossover"]["fitted"].values())
-        + " CRVAL lags a combo at 3 / 27 combos")
+        + " CRVAL lags a combo at 3 / 27 combos; phase X first / warm s: "
+        + ", ".join(f"{k} {v['first_s']:.2f} / {v['warm_s']:.2f}"
+                    for k, v in examples.items())
+        + f"; main() {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked
     # sums), so library_ms is null
@@ -3287,7 +3561,7 @@ def main():
         "replaces": "euispice_coreg_tpu/engine/pallas_warp.py:40",
         "launches": main_launches,
         "max_abs_err": max(max_err, ragged_err["K1"],
-                           g_timings["K1"]["max_abs_err"]),
+                           *(t["max_abs_err"] for t in k1_timings)),
         "ms": k1_timings[0]["ms"],
         "plain_ms": p_ms,
         "bound_ms": k1_timings[0]["bound_ms"],
@@ -3302,7 +3576,7 @@ def main():
         "replaces": "euispice_coreg_tpu/engine/pallas_quad.py:39",
         "launches": k2_launches,
         "max_abs_err": max(k2_err, ragged_err["K2"],
-                           g_timings["K2"]["max_abs_err"]),
+                           *(t["max_abs_err"] for t in k2_timings)),
         "ms": k2_timings[0]["ms"],
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_timings[0]["bound_ms"],

@@ -1,7 +1,7 @@
-"""The port stands alone: it imports no JAX (nor matplotlib until a figure
-is drawn), builds its codecs from its own sources into its own build
-directory, and a CUDA request without a card raises instead of running on
-the CPU."""
+"""The port stands alone: it and its examples import no JAX (nor
+matplotlib until a figure is drawn), it builds its codecs from its own
+sources into its own build directory, and a CUDA request without a card
+raises instead of running on the CPU."""
 import os
 import subprocess
 import sys
@@ -67,6 +67,80 @@ def test_chip_smoke_imports_no_jax_nor_matplotlib():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+EXAMPLES = os.path.join(REPO, "examples")
+PORT_EXAMPLES = ("_synthetic_torch", "demo_synthetic_torch",
+                 "align_hri_fsi_torch", "align_spice_synras_torch",
+                 "jitter_movie_torch")
+_FORBIDDEN = ("jax", "jaxlib", "euispice_coreg_tpu", "matplotlib")
+
+_RUN_EXAMPLES = """
+import os, sys
+sys.path.insert(0, {examples!r})
+for name in {names!r}:
+    module = __import__(name)
+    if name != "_synthetic_torch":
+        module.main(["--device", "cpu", os.path.join({tmp!r}, name)])
+print(sorted(k for k in sys.modules if k.split(".")[0] in {forbidden!r}))
+"""
+
+
+def test_examples_import_no_jax_nor_matplotlib(tmp_path):
+    """The port's examples (``examples/*_torch.py``) and their generators
+    import neither JAX, the JAX package nor matplotlib, at import nor in a
+    whole run of each without ``--figures`` (on the CPU)."""
+    import ast
+
+    for name in PORT_EXAMPLES:
+        with open(os.path.join(EXAMPLES, name + ".py")) as f:
+            tree = ast.parse(f.read())
+        top = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                top.add(node.module.split(".")[0])
+        assert not top & set(_FORBIDDEN), (name, top & set(_FORBIDDEN))
+    code = _RUN_EXAMPLES.format(examples=EXAMPLES, names=PORT_EXAMPLES,
+                                tmp=str(tmp_path), forbidden=_FORBIDDEN)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_FIGURES = """
+import sys
+if {block}:
+    sys.modules["matplotlib"] = None   # as if matplotlib were not installed
+sys.path.insert(0, {examples!r})
+import align_hri_fsi_torch
+try:
+    out = align_hri_fsi_torch.main(["--device", "cpu", "--figures", {tmp!r}])
+except ImportError as exc:
+    print("ImportError", exc)
+else:
+    print(out["paths"]["correlation"], "matplotlib" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_examples_figures_only_when_asked(tmp_path, block):
+    """``--figures`` draws the correlation figure with matplotlib; without
+    matplotlib it raises ``ImportError`` rather than skipping the
+    figure."""
+    code = _FIGURES.format(block=block, examples=EXAMPLES, tmp=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    last = out.stdout.strip().splitlines()[-1]
+    if block:
+        assert last.startswith("ImportError")
+        assert not os.path.exists(tmp_path / "correlation.png")
+    else:
+        assert last == f"{tmp_path / 'correlation.png'} True"
+        assert os.path.getsize(tmp_path / "correlation.png") > 0
 
 
 def _tree_state(root):
