@@ -185,7 +185,11 @@ Phases (each prints its own lines; any failure exits nonzero):
                must recover its injected shift (the demo prints OK; 1",
                SPICE (2", 1"), jitter 0.5" a frame), and the demo's
                Carrington leg must launch K2 where the route is K2.
-14. summary -- the kernels line (JSON, K1 and K2, with every timing against
+14. phase P -- the port's API reference on this machine, which has no JAX:
+               tools/gen_api_doc_torch.py --check must find the committed
+               docs/API_torch.md fresh, with no jax or euispice_coreg_tpu
+               module imported.  No kernel.
+15. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
 """
@@ -3213,6 +3217,34 @@ def phase_mesh(calls, tmp_dir, card, engine_log):
 
 
 # ---------------------------------------------------------------------------
+# phase P: the port's API reference
+# ---------------------------------------------------------------------------
+
+def phase_api_doc():
+    """``tools/gen_api_doc_torch.py --check`` in this process: the port's
+    API reference, generated here from the port alone, must equal the
+    committed ``docs/API_torch.md``.  Returns the seconds it took."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    path = os.path.join(REPO, "tools", "gen_api_doc_torch.py")
+    spec = importlib.util.spec_from_file_location("gen_api_doc_torch", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    rc = gen.main(["--check"])
+    seconds = time.perf_counter() - t0
+    jax_loaded = sorted(k for k in sys.modules if k.split(".")[0] in (
+        "jax", "jaxlib", "euispice_coreg_tpu"))
+    log(f"[api] gen_api_doc_torch.py --check: rc {rc}, "
+        f"{len(gen.SECTIONS)} sections, JAX modules loaded {jax_loaded}, "
+        f"{seconds:.3f} s")
+    if rc != 0 or jax_loaded:
+        raise AssertionError("phase P: docs/API_torch.md is stale or the "
+                             "generator loaded JAX")
+    return seconds
+
+
+# ---------------------------------------------------------------------------
 # phase X: the port's examples, as a user runs them
 # ---------------------------------------------------------------------------
 
@@ -3526,6 +3558,7 @@ def main():
         # phase X: the port's examples (K1's and K2's counts set to 0 just
         # before each run and read just after)
         examples = phase_examples(tmp_dir, engine_log)
+    api_doc_s = phase_api_doc()
     x_timings = {kid: [r["timings"][kid] for r in examples.values()
                        if kid in r["timings"]] for kid in ("K1", "K2")}
     k1_timings += [g_timings["K1"], mesh_timings["K1"], *x_timings["K1"]]
@@ -3550,6 +3583,7 @@ def main():
         + " CRVAL lags a combo at 3 / 27 combos; phase X first / warm s: "
         + ", ".join(f"{k} {v['first_s']:.2f} / {v['warm_s']:.2f}"
                     for k, v in examples.items())
+        + f"; phase P {api_doc_s:.3f} s"
         + f"; main() {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked

@@ -154,7 +154,8 @@ def world_to_pixel(params, lon_deg, lat_deg, kind="tan", xp=torch):
     raise ValueError(f"unknown projection kind: {kind}")
 
 
-def ang2pipi_deg(ang_deg):
+def ang2pipi_deg(ang_deg, xp=torch):
     """Wrap degrees into ]-180, 180] (tensor or array; ``%`` is the floored
-    remainder for both, as in Util.ang2pipi)."""
+    remainder for both, as in Util.ang2pipi).  ``xp`` is accepted as the
+    other functions here accept it; the arithmetic needs no namespace."""
     return -((-ang_deg + 180.0) % 360.0 - 180.0)

@@ -802,8 +802,9 @@ def evaluate_lag_grid_carrington(
     device,
     compute_dtype="float32",
     batch_size=8,
-    lag_mode="auto",
     mesh=None,
+    allow_fast=True,
+    lag_mode="auto",
 ):
     """Score the lag hypercube in the Carrington frame; returns
     (n1, n2, n3, n4, n5) float64 numpy.
@@ -817,7 +818,10 @@ def evaluate_lag_grid_carrington(
     first, then the select path (``"auto"`` on a card with tile-FFT first,
     :func:`_tile_fft_mode`; never on the CPU), then the gather.  ``mesh``:
     a sequence of devices every evaluator splits its work over (None:
-    ``device`` alone)."""
+    ``device`` alone).  ``allow_fast=False`` goes straight to the gather,
+    as ``lag_mode="exact"`` does."""
+    if lag_mode == "exact":
+        allow_fast = False
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
     devices = mesh_mod.resolve_mesh(mesh)
@@ -837,7 +841,7 @@ def evaluate_lag_grid_carrington(
                   l5=l5, order=order, method=method, device=dev,
                   compute_dtype=dt, mesh=devices)
 
-    if (lag_mode in ("auto", "fast") and order in (0, 2)
+    if (allow_fast and lag_mode in ("auto", "fast") and order in (0, 2)
             and method in ("correlation", "residus_masked")):
         fast = _carrington_block_fast(small_img, ref_img, sc, **common)
         if fast is not None:
@@ -846,7 +850,7 @@ def evaluate_lag_grid_carrington(
         logger.info("carrington FFT fast preconditions failed, trying "
                     "linearized select path")
 
-    if lag_mode != "exact" and order in (0, 1, 2):
+    if allow_fast and order in (0, 1, 2):
         fast = _carrington_select(
             small_img, ref_img, sc,
             tile_fft_mode=_tile_fft_mode(lag_mode,

@@ -324,14 +324,16 @@ def evaluate_crval_grid_fast(
     kind: str = "tan",
     device,
     compute_dtype="float32",
-    method: str = "correlation",
+    grid_params: dict | None = None,
     mesh=None,
+    method: str = "correlation",
 ):
     """Scores (masked Pearson or residue) for a crval1 x crval2 lag grid.
 
     Returns (n1, n2) float64 array, or None if the constant-displacement
-    bound is violated (caller falls back to the general engine).  ``mesh``:
-    see :func:`evaluate_from_displacements`.
+    bound is violated (caller falls back to the general engine).
+    ``grid_params``: see :func:`displacement_per_lag` (the comparison
+    grid's own WCS).  ``mesh``: see :func:`evaluate_from_displacements`.
     """
     l1 = np.asarray(lag_crval1_deg, dtype=np.float64)
     l2 = np.asarray(lag_crval2_deg, dtype=np.float64)
@@ -339,7 +341,8 @@ def evaluate_crval_grid_fast(
     lags = np.stack([g1.ravel(), g2.ravel()], axis=-1)
 
     with obs.stage("fast_hostprep_s"):
-        c, spread = displacement_per_lag(base_params, lags, lon, lat, kind)
+        c, spread = displacement_per_lag(base_params, lags, lon, lat, kind,
+                                         grid=grid_params)
     r = evaluate_from_displacements(
         small_img, ref_img, c, spread, order=order, device=device,
         compute_dtype=compute_dtype, method=method, mesh=mesh,
@@ -364,8 +367,8 @@ def _offsets_plan(c, h, w):
 
 def evaluate_from_displacements(small_img, ref_img, c, spread, *,
                                 order: int = 2, device,
-                                compute_dtype="float32",
-                                method: str = "correlation", mesh=None):
+                                compute_dtype="float32", mesh=None,
+                                method: str = "correlation"):
     """Scores for a list of constant pixel displacements ``c`` ((L, 2), x/y
     order) of the moving image relative to the comparison grid.
 

@@ -234,8 +234,8 @@ def evaluate_lag_grid(
     device,
     compute_dtype="float32",
     batch_size: int = 8,
-    allow_fast=True,
     mesh=None,
+    allow_fast=True,
 ) -> np.ndarray:
     """Score the full 5-D lag hypercube; returns shape
     (n_crval1, n_crval2, n_cdelt1, n_cdelt2, n_crota) as float64 numpy.
@@ -429,8 +429,8 @@ def prepare_grid_and_submap(data_large, small_params, large_params, h, w,
     return lon, lat, ref_img
 
 
-def resample_to_grid(image, x, y, order=2, *, device,
-                     compute_dtype="float32"):
+def resample_to_grid(image, x, y, order=2, compute_dtype="float32", *,
+                     device):
     """One-shot resample of ``image`` at pixel coordinates (x, y); float64
     numpy out."""
     dev = resolve_device(device)

@@ -334,8 +334,8 @@ def pick_tile_shape_hybrid(coeffs, h, w, scale_det_per_grid,
                            tol_det=TOL_DET_PX, tile_sizes=_TILE_SIZES,
                            max_tiles=_MAX_TILES, min_pass_frac=0.5,
                            order_hint=2, compute_dtype="float32",
-                           tile_batch=None, mem_budget_bytes=None,
-                           vs_k2=False, mesh=None):
+                           mesh=None, tile_batch=None, mem_budget_bytes=None,
+                           vs_k2=False):
     """Per-lag gate for the hybrid Carrington path.
 
     Called when :func:`pick_tile_shape` rejected the FULL lag set: the

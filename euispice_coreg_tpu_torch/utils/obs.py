@@ -48,6 +48,12 @@ def collect_stages():
         _stage_acc = prev
 
 
+def stages_active() -> bool:
+    """True inside a collect_stages() scope, where stage()/timed() record
+    their wall-clocks."""
+    return _stage_acc is not None
+
+
 @contextlib.contextmanager
 def stage(label: str):
     """Accumulate this block's wall-clock under ``label`` when a

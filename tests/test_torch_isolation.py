@@ -69,6 +69,29 @@ def test_chip_smoke_imports_no_jax_nor_matplotlib():
     assert out.stdout.strip() == "[]"
 
 
+_GEN_API_DOC = """
+import runpy, sys
+sys.argv = ["gen_api_doc_torch.py", "--check"]
+try:
+    runpy.run_path({path!r}, run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+print(code, sorted(k for k in sys.modules
+                   if k.split(".")[0] in ("jax", "jaxlib", "euispice_coreg_tpu")))
+"""
+
+
+def test_api_doc_generator_imports_no_jax():
+    """``tools/gen_api_doc_torch.py --check`` imports and documents the
+    port with neither JAX nor the JAX package in ``sys.modules``."""
+    code = _GEN_API_DOC.format(
+        path=os.path.join(REPO, "tools", "gen_api_doc_torch.py"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 []"
+
+
 EXAMPLES = os.path.join(REPO, "examples")
 PORT_EXAMPLES = ("_synthetic_torch", "demo_synthetic_torch",
                  "align_hri_fsi_torch", "align_spice_synras_torch",
