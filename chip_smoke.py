@@ -189,7 +189,14 @@ Phases (each prints its own lines; any failure exits nonzero):
                tools/gen_api_doc_torch.py --check must find the committed
                docs/API_torch.md fresh, with no jax or euispice_coreg_tpu
                module imported.  No kernel.
-15. summary -- the kernels line (JSON, K1 and K2, with every timing against
+15. phase Q -- the port's bench, bench_torch.main([]) in this process:
+               bench.py's nine legs at their own sizes on the card.  Its
+               JSON line is captured (printed here after "[bench] line:",
+               never as the last line); fails unless every leg has
+               seconds, leg_errors is null, the bench names the card of
+               phase 1 (name and power limit) and K2 launched in the
+               carr_coarse leg's best run.
+16. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
 """
@@ -3245,6 +3252,64 @@ def phase_api_doc():
 
 
 # ---------------------------------------------------------------------------
+# phase Q: the port's bench
+# ---------------------------------------------------------------------------
+
+# bench_torch's leg -> the key of its seconds in the bench's JSON line
+BENCH_LEGS = {"core": "wall_clock_s", "api": "end_to_end_api_s",
+              "carr": "carrington_121x121_2048_s",
+              "carr_api": "carrington_api_s",
+              "carr_coarse": "carrington_coarse_121x121_s",
+              "mixed": "mixed_grid_21x21x3_2048_s",
+              "synras": "synras_spice_e2e_s",
+              "iterative": "iterative_spice_5x5_s"}
+
+
+def phase_bench(card):
+    """``bench_torch.main([])`` in this process, its standard output
+    captured.  Fails unless every leg has seconds, no leg failed its
+    recovery check, the bench's device is phase 1's card (``card``: the
+    nvidia-smi line) and K2 launched in the carr_coarse leg's best run.
+    Returns the bench's JSON line (a dict) and the phase's seconds."""
+    import io
+
+    import torch
+
+    import bench_torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench_torch.main([])
+    seconds = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"[bench] line: {line}")
+    out = json.loads(line)
+    launches = out["launches"]
+    log("[bench] " + "; ".join(
+        f"{leg} {out[key]} s, K1 {(launches.get(leg) or {}).get('K1')} / K2 "
+        f"{(launches.get(leg) or {}).get('K2')}"
+        for leg, key in BENCH_LEGS.items())
+        + f"; {out['value']} evals/s, host per-lag reference x 20 cores "
+        f"{out['cpu_baseline_s_20core_est']} s; device {out['device']}; "
+        f"phase {seconds:.1f} s")
+    power = float(card.rsplit(",", 1)[1].split()[0])
+    dev = out["device"]
+    problems = [f"{leg} has no seconds" for leg, key in BENCH_LEGS.items()
+                if out[key] is None]
+    if out["leg_errors"] is not None:
+        problems.append(f"leg_errors {out['leg_errors']}")
+    if dev["name"] != torch.cuda.get_device_name(0) \
+            or dev["power_limit_w"] != power:
+        problems.append(f"device {dev} is not phase 1's card {card!r}")
+    if not (launches.get("carr_coarse") or {}).get("K2"):
+        problems.append(f"K2 did not launch in carr_coarse: {launches}")
+    if problems:
+        raise AssertionError("phase Q: " + "; ".join(problems))
+    return out, seconds
+
+
+# ---------------------------------------------------------------------------
 # phase X: the port's examples, as a user runs them
 # ---------------------------------------------------------------------------
 
@@ -3559,6 +3624,9 @@ def main():
         # before each run and read just after)
         examples = phase_examples(tmp_dir, engine_log)
     api_doc_s = phase_api_doc()
+    # phase Q: the port's bench (its launches are its own, not the main
+    # path's)
+    bench, bench_s = phase_bench(card)
     x_timings = {kid: [r["timings"][kid] for r in examples.values()
                        if kid in r["timings"]] for kid in ("K1", "K2")}
     k1_timings += [g_timings["K1"], mesh_timings["K1"], *x_timings["K1"]]
@@ -3584,6 +3652,8 @@ def main():
         + ", ".join(f"{k} {v['first_s']:.2f} / {v['warm_s']:.2f}"
                     for k, v in examples.items())
         + f"; phase P {api_doc_s:.3f} s"
+        + f"; phase Q (bench) {bench_s:.1f} s, core {bench['wall_clock_s']}"
+        f" s, carr_coarse {bench['carrington_coarse_121x121_s']} s"
         + f"; main() {time.perf_counter() - t_start:.1f} s")
     # no single PyTorch call computes either function (grid_sample has no
     # order-2 B-spline, no mirror rule at sample_image's edge and no masked
