@@ -194,8 +194,10 @@ Phases (each prints its own lines; any failure exits nonzero):
                JSON line is captured (printed here after "[bench] line:",
                never as the last line); fails unless every leg has
                seconds, leg_errors is null, the bench names the card of
-               phase 1 (name and power limit) and K2 launched in the
-               carr_coarse leg's best run.
+               phase 1 (name and power limit), K2 launched in the
+               carr_coarse leg's best run and the README generator's line
+               loader (tools/gen_readme_perf_torch.py) neither refuses
+               the line nor masks a leg of it.
 16. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
@@ -3227,17 +3229,23 @@ def phase_mesh(calls, tmp_dir, card, engine_log):
 # phase P: the port's API reference
 # ---------------------------------------------------------------------------
 
+def _load_tool(name):
+    """``tools/<name>.py`` as a module (``tools/`` is no package)."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tools", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def phase_api_doc():
     """``tools/gen_api_doc_torch.py --check`` in this process: the port's
     API reference, generated here from the port alone, must equal the
     committed ``docs/API_torch.md``.  Returns the seconds it took."""
-    import importlib.util
-
     t0 = time.perf_counter()
-    path = os.path.join(REPO, "tools", "gen_api_doc_torch.py")
-    spec = importlib.util.spec_from_file_location("gen_api_doc_torch", path)
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
+    gen = _load_tool("gen_api_doc_torch")
     rc = gen.main(["--check"])
     seconds = time.perf_counter() - t0
     jax_loaded = sorted(k for k in sys.modules if k.split(".")[0] in (
@@ -3269,8 +3277,10 @@ def phase_bench(card):
     """``bench_torch.main([])`` in this process, its standard output
     captured.  Fails unless every leg has seconds, no leg failed its
     recovery check, the bench's device is phase 1's card (``card``: the
-    nvidia-smi line) and K2 launched in the carr_coarse leg's best run.
-    Returns the bench's JSON line (a dict) and the phase's seconds."""
+    nvidia-smi line), K2 launched in the carr_coarse leg's best run and
+    the README generator (``tools/gen_readme_perf_torch.py``) takes the
+    line as it is: neither refused nor masked.  Returns the bench's JSON
+    line (a dict) and the phase's seconds."""
     import io
 
     import torch
@@ -3299,6 +3309,17 @@ def phase_bench(card):
                 if out[key] is None]
     if out["leg_errors"] is not None:
         problems.append(f"leg_errors {out['leg_errors']}")
+    # the README generator's line loader must take the line as it is
+    gen = _load_tool("gen_readme_perf_torch")
+    try:
+        taken = gen.mask_failed_legs(gen.parse_run(line, "phase Q"))
+    except gen.RunRefused as exc:
+        problems.append(f"the README generator refuses the line: {exc}")
+    else:
+        log(f"[bench] README generator: card {gen.card_of(out)}, line "
+            + ("taken as it is" if taken == out else "masked"))
+        if taken != out:
+            problems.append("the README generator masks legs of the line")
     if dev["name"] != torch.cuda.get_device_name(0) \
             or dev["power_limit_w"] != power:
         problems.append(f"device {dev} is not phase 1's card {card!r}")
