@@ -197,7 +197,17 @@ Phases (each prints its own lines; any failure exits nonzero):
                phase 1 (name and power limit), K2 launched in the
                carr_coarse leg's best run and the README generator's line
                loader (tools/gen_readme_perf_torch.py) neither refuses
-               the line nor masks a leg of it.
+               the line nor masks a leg of it.  Then every leg's last
+               hypercube is held to the JAX package's at the same size
+               (tests/goldens/jax_bench_legs.npz, written on a CPU by
+               tools/gen_jax_goldens_torch.py; read with numpy), one
+               "[golden]" line a leg: operands within 1e-12 relative,
+               NaN pattern, max |d| within the tolerance of the two
+               routes (bench_torch.golden_tolerance), argmax equal or
+               within the tolerance of the golden's maximum where the
+               golden's own top-2 margin is below it; and the mixed grid
+               once more on K1 (one launch), held to the same golden with
+               the argmax on its CROTA = 0 plane.
 16. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
@@ -3277,10 +3287,12 @@ def phase_bench(card):
     """``bench_torch.main([])`` in this process, its standard output
     captured.  Fails unless every leg has seconds, no leg failed its
     recovery check, the bench's device is phase 1's card (``card``: the
-    nvidia-smi line), K2 launched in the carr_coarse leg's best run and
-    the README generator (``tools/gen_readme_perf_torch.py``) takes the
-    line as it is: neither refused nor masked.  Returns the bench's JSON
-    line (a dict) and the phase's seconds."""
+    nvidia-smi line), K2 launched in the carr_coarse leg's best run, the
+    README generator (``tools/gen_readme_perf_torch.py``) takes the line
+    as it is (neither refused nor masked), every leg's last hypercube
+    agrees with the JAX package's (:func:`phase_golden`) and K1 on the
+    mixed grid does too.  Returns the bench's JSON line (a dict) and the
+    phase's seconds."""
     import io
 
     import torch
@@ -3288,9 +3300,10 @@ def phase_bench(card):
     import bench_torch
 
     buf = io.StringIO()
+    keep = {}
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        bench_torch.main([])
+        bench_torch.main([], keep=keep)
     seconds = time.perf_counter() - t0
     line = buf.getvalue().strip().splitlines()[-1]
     log(f"[bench] line: {line}")
@@ -3325,9 +3338,108 @@ def phase_bench(card):
         problems.append(f"device {dev} is not phase 1's card {card!r}")
     if not (launches.get("carr_coarse") or {}).get("K2"):
         problems.append(f"K2 did not launch in carr_coarse: {launches}")
+    problems += phase_golden(keep)
     if problems:
         raise AssertionError("phase Q: " + "; ".join(problems))
     return out, seconds
+
+
+def phase_golden(keep):
+    """Every bench leg's kept hypercube (``keep``: ``bench_torch.main``'s)
+    against the JAX package's (``bench_torch.GOLDEN``), then the mixed
+    grid's operands through K1 (``warp_score.evaluate_lag_grid_warp``, one
+    launch) against the same golden, its argmax on the CROTA = 0 plane
+    (bench.py's).  Logs one ``[golden]`` line each; returns the
+    problems."""
+    import torch
+
+    import bench_torch
+    from euispice_coreg_tpu_torch.engine import warp_score
+
+    t0 = time.perf_counter()
+    golden = bench_torch.load_golden()
+    problems = []
+    for leg in BENCH_LEGS:
+        if leg not in keep:
+            problems.append(f"{leg}: no hypercube kept")
+            continue
+        k = keep[leg]
+        f = bench_torch.compare_to_golden(leg, k["corr"], k["inputs"], golden,
+                                          route=k["route"])
+        log(f"[golden] {bench_torch.golden_line(f)}")
+        problems += f["problems"]
+
+    dev = torch.device(DEVICE)
+    small, ref, lon, lat, base = bench_torch.synthesize_pair(dev)
+    ops = [t.to(torch.float32) for t in (small, ref, lon, lat)]
+    lags = keep["mixed"]["inputs"]["lags"] if "mixed" in keep else \
+        golden["mixed"]["lags"]
+    warp_score.LAUNCHES = 0
+    t1 = time.perf_counter()
+    corr = warp_score.evaluate_lag_grid_warp(
+        *ops, base, *lags, order=2, method="correlation", kind="tan",
+        device=dev, compute_dtype="float32")
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t1
+    launches = warp_score.LAUNCHES
+    inputs = {"lags": lags, "operands": {
+        name: bench_torch.fingerprint(t)
+        for name, t in zip(("small", "ref", "lon", "lat"),
+                           (small, ref, lon, lat))}}
+    f = bench_torch.compare_to_golden(
+        "mixed", corr, inputs, golden,
+        route="engine path: K1 fused warp+score kernel",
+        plane=(slice(None), slice(None), 0, 0, 1))
+    log(f"[golden] K1 {bench_torch.golden_line(f)}; argmax on the CROTA = 0 "
+        f"plane; {launches} launch(es), {k1_s * 1e3:.1f} ms with the "
+        f"operands' upload and the host's Pearson")
+    problems += [f"K1 on the mixed grid: {p}" for p in f["problems"]]
+    if launches != 1:
+        problems.append(f"K1 on the mixed grid launched {launches} times")
+    golden_api_host_grid(small, ref, base, golden)
+    log(f"[golden] {len(BENCH_LEGS)} legs and K1 compared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return problems
+
+
+def golden_api_host_grid(small, ref, base, golden):
+    """Which stage the api leg's gap comes from: its comparison grid and
+    submap (``lag_search.prepare_grid_and_submap``, float32) built on the
+    card and on the host CPU, and the card's engine on each, held to the
+    api golden.  Logs one ``[golden]`` line; checks nothing."""
+    import numpy as np
+    import torch
+
+    from euispice_coreg_tpu_torch.core import wcs as wcs_mod
+    from euispice_coreg_tpu_torch.engine import lag_search
+
+    n = small.shape[0]
+    params = {k: v for k, v in base.items() if k != "crota"}
+    lags = golden["api"]["lags"]
+    small32 = small.to(torch.float32)
+    ref32 = ref.to(torch.float32).cpu().numpy()
+    px, py = lag_search.probe_pixel_points(n, n)
+    plh, pbh = wcs_mod.pixel_to_world(params, px, py, kind="tan", xp=np)
+    out = {}
+    for where in ("cuda", "cpu"):
+        lon, lat, sub = lag_search.prepare_grid_and_submap(
+            ref32, params, params, n, n, "tan", False, 2, device=where,
+            compute_dtype="float32")
+        lon, lat, sub = (t.to(small32.device) for t in (lon, lat, sub))
+        lag_search.seed_probe_values(lon, lat, plh, pbh)
+        corr = lag_search.evaluate_lag_grid(
+            small32, sub, lon, lat, base, *(np.asarray(v) / 3600.0
+                                            for v in lags),
+            order=2, method="correlation", kind="tan",
+            device=small32.device, compute_dtype="float32")
+        out[where] = (lon, int(torch.isnan(sub).sum()),
+                      float(np.nanmax(np.abs(corr - golden["api"]["corr"][
+                          ..., 0]))))
+    dlon = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    log(f"[golden] api's grid and submap built on the card / on the host "
+        f"CPU: grids {dlon:.3e} deg apart, submap NaN {out['cuda'][1]} / "
+        f"{out['cpu'][1]}, the card's engine on them max |d| against the "
+        f"golden {out['cuda'][2]:.3e} / {out['cpu'][2]:.3e}")
 
 
 # ---------------------------------------------------------------------------

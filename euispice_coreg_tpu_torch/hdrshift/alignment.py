@@ -523,6 +523,15 @@ class Alignment:
                 large_params.as_dict(), h, w, kind, do_wrap, self.order,
                 device=self.device, compute_dtype=self.compute_dtype)
 
+        # the displacement model's probe world values come from the small
+        # header's WCS in float64, as the JAX package seeds them (its
+        # alignment.py:448-461), while the wrap is inactive
+        if not do_wrap:
+            pts_x, pts_y = lag_search.probe_pixel_points(h, w)
+            plh, pbh = wcs_mod.pixel_to_world(small_params.as_dict(), pts_x,
+                                              pts_y, kind=kind, xp=np)
+            lag_search.seed_probe_values(lon, lat, plh, pbh)
+
         base = {**small_params.as_dict(), "crota": get_crota(self.hdr_small)}
         return lon, lat, ref_img, base, kind
 

@@ -332,3 +332,24 @@ def test_not_ported_parts_raise(tmp_path):
                                           mesh=two, **kw),
         tile_fft.evaluate_select_tile_fft(coeffs, frames[0], frames[1], **kw),
         rtol=0, atol=1e-12)
+
+
+def test_golden_comparison_imports_no_jax():
+    """bench_torch.py and chip_smoke.py read the JAX package's hypercubes
+    (tests/goldens/jax_bench_legs.npz) with numpy alone: loading the file
+    and comparing a leg with it load no jax, jaxlib or JAX-package
+    module."""
+    code = (
+        "import sys, bench_torch, chip_smoke\n"
+        "g = bench_torch.load_golden()\n"
+        "k = g['core']\n"
+        "f = bench_torch.compare_to_golden('core', k['corr'], {'lags': "
+        "k['lags'], 'operands': k['operands']}, g, route=k['route'])\n"
+        "assert not f['problems'] and f['max_abs'] == 0.0, f\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'euispice_coreg_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
