@@ -203,11 +203,16 @@ Phases (each prints its own lines; any failure exits nonzero):
                tools/gen_jax_goldens_torch.py; read with numpy), one
                "[golden]" line a leg: operands within 1e-12 relative,
                NaN pattern, max |d| within the tolerance of the two
-               routes (bench_torch.golden_tolerance), argmax equal or
-               within the tolerance of the golden's maximum where the
-               golden's own top-2 margin is below it; and the mixed grid
-               once more on K1 (one launch), held to the same golden with
-               the argmax on its CROTA = 0 plane.
+               routes (bench_torch.golden_tolerance), argmax equal or,
+               where the golden's own top-2 margin is below both that
+               tolerance and 1e-5, within it of the golden's maximum; the
+               legs whose operands the card builds in float32 (api,
+               synras, iterative) hold the argmax exactly there and their
+               values at 1e-5 on host-built operands; carr_coarse's
+               witness (the JAX package's exact engine on every 10th lag)
+               is printed beside it; and the mixed grid once more on K1
+               (one launch, the bench's renders), held to the same golden
+               with the exact argmax on its CROTA = 0 plane.
 16. summary -- the kernels line (JSON, K1 and K2, with every timing against
                its bound, slice G's and the two-shard launches among them),
                then {"ok": true, "device": ...} as the last line.
@@ -3346,11 +3351,15 @@ def phase_bench(card):
 
 def phase_golden(keep):
     """Every bench leg's kept hypercube (``keep``: ``bench_torch.main``'s)
-    against the JAX package's (``bench_torch.GOLDEN``), then the mixed
-    grid's operands through K1 (``warp_score.evaluate_lag_grid_warp``, one
-    launch) against the same golden, its argmax on the CROTA = 0 plane
-    (bench.py's).  Logs one ``[golden]`` line each; returns the
-    problems."""
+    against the JAX package's (``bench_torch.GOLDEN``), the legs whose
+    operands the card builds on host-built operands
+    (:func:`golden_host_built`), then the mixed grid's operands through K1
+    (``warp_score.evaluate_lag_grid_warp``, one launch) against the same
+    golden, its argmax on the CROTA = 0 plane (bench.py's).  Reuses the
+    bench's renders.  Logs one ``[golden]`` line each, and where the
+    carr_coarse golden has a witness, how far the JAX package's exact
+    engine lies from both; returns the problems."""
+    import numpy as np
     import torch
 
     import bench_torch
@@ -3365,12 +3374,30 @@ def phase_golden(keep):
             continue
         k = keep[leg]
         f = bench_torch.compare_to_golden(leg, k["corr"], k["inputs"], golden,
-                                          route=k["route"])
+                                          route=k["route"], built_on_card=True)
         log(f"[golden] {bench_torch.golden_line(f)}")
         problems += f["problems"]
+    w = golden.get("carr_coarse", {}).get("witness")
+    if w is not None and "carr_coarse" in keep:
+        sub = (slice(None, None, w["step"]),) * 2
+        port = keep["carr_coarse"]["corr"][sub]
+        jax_sel = golden["carr_coarse"]["corr"][sub]
+        c = tuple(n // 2 for n in w["corr"].shape[:2])
+        fam = bench_torch.route_family(golden["carr_coarse"]["route"])
+        log(f"[golden] carr_coarse witness: the JAX package's "
+            f"{w['route']!r} on every {w['step']}th lag ({port.shape[0]}^2)"
+            f": max |d| against its {fam} "
+            f"{np.nanmax(np.abs(w['corr'] - jax_sel)):.3e}, against the "
+            f"port's {np.nanmax(np.abs(w['corr'] - port)):.3e} (|d| at lag "
+            f"0 {abs(w['corr'][c] - port[c]).item():.3e}); the port against "
+            f"the JAX package's {fam} there "
+            f"{np.nanmax(np.abs(port - jax_sel)):.3e}")
 
-    dev = torch.device(DEVICE)
-    small, ref, lon, lat, base = bench_torch.synthesize_pair(dev)
+    small, ref, lon, lat, base = bench_torch.last_pair
+    bench_torch.last_pair = None
+    problems += golden_host_built(small, ref, base, golden)
+
+    dev = small.device
     ops = [t.to(torch.float32) for t in (small, ref, lon, lat)]
     lags = keep["mixed"]["inputs"]["lags"] if "mixed" in keep else \
         golden["mixed"]["lags"]
@@ -3396,50 +3423,67 @@ def phase_golden(keep):
     problems += [f"K1 on the mixed grid: {p}" for p in f["problems"]]
     if launches != 1:
         problems.append(f"K1 on the mixed grid launched {launches} times")
-    golden_api_host_grid(small, ref, base, golden)
-    log(f"[golden] {len(BENCH_LEGS)} legs and K1 compared in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[golden] {len(BENCH_LEGS)} legs, the host-built runs and K1 "
+        f"compared in {time.perf_counter() - t0:.1f} s")
     return problems
 
 
-def golden_api_host_grid(small, ref, base, golden):
-    """Which stage the api leg's gap comes from: its comparison grid and
-    submap (``lag_search.prepare_grid_and_submap``, float32) built on the
-    card and on the host CPU, and the card's engine on each, held to the
-    api golden.  Logs one ``[golden]`` line; checks nothing."""
+def golden_host_built(small, ref, base, golden):
+    """The legs of ``bench_torch.DEVICE_BUILT`` on operands built on the
+    host CPU, their values held to the golden's tolerance: api's
+    comparison grid and submap (``lag_search.prepare_grid_and_submap``,
+    float32, seeded as Alignment seeds them) built on the host and scored
+    by the card's engine; synras and iterative through the port on the
+    host CPU, one run each.  Logs one ``[golden]`` line a leg; returns the
+    problems."""
+    import tempfile
+    from unittest import mock
+
     import numpy as np
     import torch
 
+    import bench_torch
     from euispice_coreg_tpu_torch.core import wcs as wcs_mod
     from euispice_coreg_tpu_torch.engine import lag_search
 
+    problems = []
     n = small.shape[0]
     params = {k: v for k, v in base.items() if k != "crota"}
     lags = golden["api"]["lags"]
     small32 = small.to(torch.float32)
-    ref32 = ref.to(torch.float32).cpu().numpy()
+    lon, lat, sub = lag_search.prepare_grid_and_submap(
+        ref.to(torch.float32).cpu().numpy(), params, params, n, n, "tan",
+        False, 2, device="cpu", compute_dtype="float32")
+    lon, lat, sub = (t.to(small.device) for t in (lon, lat, sub))
     px, py = lag_search.probe_pixel_points(n, n)
-    plh, pbh = wcs_mod.pixel_to_world(params, px, py, kind="tan", xp=np)
-    out = {}
-    for where in ("cuda", "cpu"):
-        lon, lat, sub = lag_search.prepare_grid_and_submap(
-            ref32, params, params, n, n, "tan", False, 2, device=where,
-            compute_dtype="float32")
-        lon, lat, sub = (t.to(small32.device) for t in (lon, lat, sub))
-        lag_search.seed_probe_values(lon, lat, plh, pbh)
+    lag_search.seed_probe_values(
+        lon, lat, *wcs_mod.pixel_to_world(params, px, py, kind="tan", xp=np))
+    with bench_torch.route_log() as lines:
         corr = lag_search.evaluate_lag_grid(
             small32, sub, lon, lat, base, *(np.asarray(v) / 3600.0
                                             for v in lags),
             order=2, method="correlation", kind="tan",
-            device=small32.device, compute_dtype="float32")
-        out[where] = (lon, int(torch.isnan(sub).sum()),
-                      float(np.nanmax(np.abs(corr - golden["api"]["corr"][
-                          ..., 0]))))
-    dlon = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    log(f"[golden] api's grid and submap built on the card / on the host "
-        f"CPU: grids {dlon:.3e} deg apart, submap NaN {out['cuda'][1]} / "
-        f"{out['cpu'][1]}, the card's engine on them max |d| against the "
-        f"golden {out['cuda'][2]:.3e} / {out['cpu'][2]:.3e}")
+            device=small.device, compute_dtype="float32")
+    inputs = {"lags": lags, "operands": {
+        "small": bench_torch.fingerprint(small),
+        "ref": bench_torch.fingerprint(ref)}}
+    found = [bench_torch.compare_to_golden(
+        "api", corr[..., None], inputs, golden, route=" | ".join(lines))]
+    cpu = torch.device("cpu")
+    with mock.patch.object(bench_torch, "timed_best", bench_torch.run_once):
+        for leg, run in (("synras", bench_torch.run_synras_spice),
+                         ("iterative", bench_torch.run_iterative_spice)):
+            with tempfile.TemporaryDirectory() as td:
+                run(td, cpu)
+            found.append(bench_torch.compare_to_golden(
+                leg, bench_torch.last_result, bench_torch.last_inputs,
+                golden, route=bench_torch.last_route))
+    for f, where in zip(found, ("grid and submap built on the host CPU, the "
+                                "card's engine", "on the host CPU",
+                                "on the host CPU")):
+        log(f"[golden] host-built {bench_torch.golden_line(f)}; {where}")
+        problems += [f"host-built {p}" for p in f["problems"]]
+    return problems
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,9 @@ It writes ``tests/goldens/jax_bench_legs.npz``.  For leg ``L`` the file holds
 - ``L.constants``: a JSON object of the leg's sizes, steps and injection;
 - ``L.margin``: the hypercube's top-2 margin (its largest finite value less
   the next one);
+- for a leg of ``WITNESS`` (its golden route is not the exact engine),
+  ``L.witness.corr``, ``L.witness.route`` and ``L.witness.step``: the
+  exact engine's hypercube on every ``step``-th lag of each CRVAL axis;
 
 and ``meta``: a JSON object with the JAX and numpy versions, the x64 flag
 and the sizes' name (``full`` or ``small``).
@@ -42,8 +45,8 @@ Each leg runs in a process of its own (``--leg`` runs only those named)
 and replaces only its own keys in the file, under a lock, so legs may run
 one at a time or side by side; a leg that does not finish within
 ``--timeout`` seconds (default 1800) writes nothing.  The Carrington legs
-pass ``lag_mode="tile_fft"`` (``LAG_MODE``), which the file names in their
-route.  Images, grids and steps are never shrunk.  ``--small`` writes the
+pass a ``lag_mode`` (``LAG_MODE``), which the file names in their route.
+Images, grids and steps are never shrunk.  ``--small`` writes the
 same legs at small sizes (``SMALL``) for tests; a test may also call
 :func:`compute_leg` in its own process.
 
@@ -82,10 +85,20 @@ SMALL = {"N_SMALL": 256, "N_REF": 256, "GRID": 41,
 # Legs whose JAX route differs from bench.py's call: leg -> lag_mode.  On
 # an 8-core CPU bench.py's route ("auto": the XLA select evaluator on a
 # CPU) finished no Carrington leg within 1800 s; "tile_fft" took 70-117 s
-# (carr, carr_api) and 2104 s (carr_coarse, whose tile-FFT declines: the
-# per-lag gather).
+# (carr, carr_api).  On carr_coarse "tile_fft" declines and the XLA select
+# evaluator too (its whole-image residual exceeds 24 px), so a CPU run ends
+# in the per-lag gather (2104 s), an algorithm whose canvas is the whole
+# detector image; "pallas" takes the quad kernel (in interpret mode on a
+# CPU), the algorithm of the JAX package's accelerator route and of the
+# port's K2, whose canvas is the Carrington grid.
 LAG_MODE: dict[str, str] = {"carr": "tile_fft", "carr_api": "tile_fft",
-                            "carr_coarse": "tile_fft"}
+                            "carr_coarse": "pallas"}
+
+# Legs whose golden route is not the exact engine keep a witness: the
+# exact engine's hypercube on every WITNESS_STEP-th lag of each CRVAL axis
+# (leg -> lag_mode), to show where the two JAX routes part.
+WITNESS: dict[str, str] = {"carr_coarse": "exact"}
+WITNESS_STEP = 10
 
 CARR_LONLIMS = (117.0, 123.0)
 CARR_LATLIMS = (-1.0, 7.0)
@@ -339,7 +352,7 @@ def _carr_ref(bench, sizes):
     return bench._carr_scene(lon_g, lat_g)
 
 
-def _carr_engine(sizes, lag_mode, small, hdr, step_arcsec):
+def _carr_engine(sizes, lag_mode, small, hdr, step_arcsec, every=1):
     import jax.numpy as jnp
 
     from euispice_coreg_tpu.engine import carrington as carr
@@ -347,6 +360,7 @@ def _carr_engine(sizes, lag_mode, small, hdr, step_arcsec):
     bench = _bench(sizes)
     ops = {"small": small, "ref": _carr_ref(bench, sizes)}
     l1 = (np.arange(bench.GRID) - bench.GRID // 2) * step_arcsec / 3600.0
+    l1 = l1[::every]
     lags = _lags5(l1, l1, [0.0], [0.0], [0.0])
     kw = {} if lag_mode is None else {"lag_mode": lag_mode}
     corr = carr.evaluate_lag_grid_carrington(
@@ -366,12 +380,12 @@ def leg_carr(sizes, lag_mode):
     return corr, ops, lags, {"step_arcsec": 0.5, "injected_arcsec": None}
 
 
-def leg_carr_coarse(sizes, lag_mode):
+def leg_carr_coarse(sizes, lag_mode, every=1):
     bench = _bench(sizes)
     small = bench._carr_render(bench._carr_header(bench.N_SMALL, 2.0,
                                                   150.0 + 24.0, 100.0))
     hdr = bench._carr_header(bench.N_SMALL, 2.0, 150.0, 100.0)
-    corr, ops, lags = _carr_engine(sizes, lag_mode, small, hdr, 2.0)
+    corr, ops, lags = _carr_engine(sizes, lag_mode, small, hdr, 2.0, every)
     return corr, ops, lags, {"step_arcsec": 2.0,
                              "injected_arcsec": [24.0, 0.0]}
 
@@ -430,10 +444,18 @@ def compute_leg(leg, sizes=FULL):
     constants = {k: (list(v) if isinstance(v, tuple) else v)
                  for k, v in sizes.items()}
     constants.update(consts)
-    return {"corr": corr, "route": route,
-            "operands": {k: fingerprint(v) for k, v in ops.items()},
-            "lags": lags, "constants": constants,
-            "margin": top2_margin(corr), "seconds": seconds}
+    entry = {"corr": corr, "route": route,
+             "operands": {k: fingerprint(v) for k, v in ops.items()},
+             "lags": lags, "constants": constants,
+             "margin": top2_margin(corr), "seconds": seconds}
+    if leg in WITNESS:
+        with route_log() as lines:
+            w = _LEG_FNS[leg](sizes, WITNESS[leg], every=WITNESS_STEP)[0]
+        entry["witness"] = {
+            "corr": np.asarray(w, dtype=np.float64), "step": WITNESS_STEP,
+            "route": f"lag_mode={WITNESS[leg]}: "
+                     + (" | ".join(lines) or "(no engine route line)")}
+    return entry
 
 
 def leg_arrays(leg, entry):
@@ -448,6 +470,11 @@ def leg_arrays(leg, entry):
         out[f"{leg}.op.{name}.stats"] = stats
     for i, lag in enumerate(entry["lags"]):
         out[f"{leg}.lag{i}"] = lag
+    if "witness" in entry:
+        w = entry["witness"]
+        out[f"{leg}.witness.corr"] = w["corr"]
+        out[f"{leg}.witness.route"] = np.str_(w["route"])
+        out[f"{leg}.witness.step"] = np.int64(w["step"])
     return out
 
 
