@@ -84,15 +84,15 @@ IMAGER_SHAPE = (1024, 1024)    # the SPICE legs' imager frames, 2.4"/px
 CPU_BASELINE_PROCS = 20
 CPU_PROBE_LAGS = 5
 
-# long engine timed() labels -> short bench stage keys (bench.py's keys; the
-# port names the select evaluation on K2 "carrington K2 ...")
+# the port's span names -> bench.py's stage keys for the same steps (the
+# port's select evaluation on K2 is bench.py's "pallas_s")
 _STAGE_KEYS = {
-    "carrington pre-warp (small -> grid)": "prewarp_s",
-    "carrington tile-FFT select evaluation": "tilefft_total_s",
-    "carrington hybrid tile-FFT evaluation": "hybrid_tilefft_s",
-    "carrington K2 select evaluation": "pallas_s",
-    "carrington lon/lat grid (host)": "hostgrid_s",
-    "submap (reference image -> comparison grid)": "submap_s",
+    "carr_prewarp_s": "prewarp_s",
+    "carr_tilefft_select_s": "tilefft_total_s",
+    "carr_tilefft_hybrid_s": "hybrid_tilefft_s",
+    "k2_s": "pallas_s",
+    "carr_hostgrid_s": "hostgrid_s",
+    "api_submap_s": "submap_s",
 }
 
 GOLDEN = os.path.join(REPO, "tests", "goldens", "jax_bench_legs.npz")

@@ -1676,9 +1676,9 @@ def phase_slice_i(p_large, p_small, k2_corr, k2_stages, k2_kernel_ms,
         raise AssertionError("I3: the grouped evaluation disagrees or did not "
                              "group")
 
-    tile_s = stages["carrington tile-FFT select evaluation"]
+    tile_s = stages["carr_tilefft_select_s"]
     stage1_ms = sum(stage_ms[k] for k in ("forward", "products", "inverse"))
-    k2_s = k2_stages["carrington K2 select evaluation"]
+    k2_s = k2_stages["k2_s"]
     gate_eval = sum(stages.get(k, 0.0) for k in (
         "carr_tilefft_gate_s", "carr_tilefft_hostprep_s",
         "carr_tilefft_eval_s"))

@@ -40,6 +40,8 @@ the FFT path the surface planes; the pre-warp runs on ``device``.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
@@ -47,7 +49,7 @@ from ..core import resample, score, wcs
 from ..core.header import get_crota
 from ..utils import mesh as mesh_mod
 from ..utils import timeutils, units
-from ..utils.obs import Progress, logger, stage, timed
+from ..utils.obs import Progress, logger, stage
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import fast_corr, lag_search, quad_score, tile_fft
 
@@ -566,7 +568,7 @@ def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                                 fit_err, tol_grid, fit_err * scale)
                     return None
 
-                with timed("carrington pre-warp (small -> grid)"):
+                with stage("carr_prewarp_s", card=True, level=logging.INFO):
                     warped_d = warp_to_grid(small_d, combo, lonlims, latlims,
                                             shape, delta_t, rate_wave, order)
                 vals = np.zeros(L)
@@ -579,11 +581,10 @@ def _carrington_select(small_img, ref_img, sc, delta_t, rate_wave,
                                            vs_k2=tile_fft_mode == "vs_k2",
                                            mesh=mesh)
                 if rem.size:
-                    with timed("carrington K2 select evaluation"):
-                        vals_k = quad_score.evaluate_select_quad(
-                            coeffs[rem], warped_d, ref_d, order=order,
-                            method=method, device=dev, compute_dtype=dt,
-                            mesh=mesh)
+                    vals_k = quad_score.evaluate_select_quad(
+                        coeffs[rem], warped_d, ref_d, order=order,
+                        method=method, device=dev, compute_dtype=dt,
+                        mesh=mesh)
                     if vals_k is None:
                         return None
                     logger.info("carrington select: K2 quad kernel (%d "
@@ -624,7 +625,7 @@ def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
                     tile_fft._est_k2_seconds(L, h, w), L,
                     tile_fft._EST_SELECT_OVERHEAD_S)
         return np.arange(L)
-    with timed("carrington tile-FFT select evaluation"):
+    with stage("carr_tilefft_select_s", level=logging.INFO):
         with stage("carr_tilefft_gate_s"):
             pick = tile_fft.pick_tile_shape(coeffs, h, w, scale)
         vals_t = None if pick is None else tile_fft.evaluate_select_tile_fft(
@@ -646,7 +647,7 @@ def _select_tile_fft(coeffs, warped_d, ref_d, vals, *, order, method, h, w,
                                               vs_k2=vs_k2, mesh=mesh)
     if hyb is not None:
         (th, tw), mask = hyb
-        with timed("carrington hybrid tile-FFT evaluation"):
+        with stage("carr_tilefft_hybrid_s", level=logging.INFO):
             vals_h = tile_fft.evaluate_select_tile_fft(
                 coeffs[mask], warped_d, ref_d, order=order, h=h, w=w,
                 method=method, compute_dtype=compute_dtype,
@@ -867,7 +868,7 @@ def evaluate_lag_grid_carrington(
 
     # gather fallback: full-grid observer geometry on the host in float64
     # (the reference-exact path keeps its numerics there)
-    with timed("carrington lon/lat grid (host)"):
+    with stage("carr_hostgrid_s", level=logging.INFO):
         lon, lat = carrington_grid(lonlims, latlims, shape)
     lon_rot = lon - diff_rot_shift_deg(lat, delta_t, rate_wave)
     x3, yy, zz = observer_geometry(lon_rot, lat, sc["obs_lon"], sc["obs_lat"])

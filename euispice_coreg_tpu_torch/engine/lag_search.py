@@ -30,6 +30,7 @@ plan caches).
 """
 from __future__ import annotations
 
+import logging
 import weakref
 
 import numpy as np
@@ -389,7 +390,9 @@ def _evaluate_block_fast(small_img, ref_img, lon, lat, base_params,
     lat_d = to_tensor(lat, device=device, dtype=compute_dtype)
     for k, (i3, i4, i5, combo) in enumerate(combos):
         params = {key: v for key, v in combo.items() if key != "crota"}
-        warped = _warp_by_params(small_d, lon_d, lat_d, params, kind, order)
+        with stage("block_warp_s", card=True):
+            warped = _warp_by_params(small_d, lon_d, lat_d, params, kind,
+                                     order)
         vals = fast_corr.evaluate_from_displacements(
             warped, ref_d, cs[k], spreads[k], order=order, device=device,
             compute_dtype=compute_dtype, method=method, mesh=mesh)
@@ -423,11 +426,13 @@ def prepare_grid_and_submap(data_large, small_params, large_params, h, w,
     Returns (lon, lat, ref_img) as (h, w) tensors on ``device``."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
-    lon, lat = compute_world_grid(small_params, h, w, kind, wrap, device=dev,
-                                  compute_dtype=dt)
-    xg, yg = wcs.world_to_pixel(large_params, lon, lat, kind=kind)
-    ref_img = resample.sample_image(to_tensor(data_large, device=dev,
-                                              dtype=dt), xg, yg, order=order)
+    with stage("api_submap_s", card=True, level=logging.INFO):
+        lon, lat = compute_world_grid(small_params, h, w, kind, wrap,
+                                      device=dev, compute_dtype=dt)
+        xg, yg = wcs.world_to_pixel(large_params, lon, lat, kind=kind)
+        ref_img = resample.sample_image(to_tensor(data_large, device=dev,
+                                                  dtype=dt), xg, yg,
+                                        order=order)
     return lon, lat, ref_img
 
 

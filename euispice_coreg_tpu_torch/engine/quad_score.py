@@ -26,6 +26,7 @@ its ``max_m`` decline have no counterpart: every lag is scored.
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from ..core import resample
 from ..utils import mesh as mesh_mod
+from ..utils.obs import stage
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import _build
 from .warp_score import (MAX_LAGS, PAD, build_tiles, launch_geometry,
@@ -221,6 +223,15 @@ def evaluate_select_quad(coeffs, warped, ref_img, *, order,
     """
     if method not in METHODS or order not in (0, 1, 2):
         return None
+    with stage("k2_s", card=True, level=logging.INFO):
+        return _evaluate_k2(coeffs, warped, ref_img, order=order,
+                            method=method, device=device,
+                            compute_dtype=compute_dtype, mesh=mesh)
+
+
+def _evaluate_k2(coeffs, warped, ref_img, *, order, method, device,
+                 compute_dtype, mesh):
+    """:func:`evaluate_select_quad` once its method and order apply."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
     devices = mesh_mod.resolve_mesh(mesh) or (dev,)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..core import resample, wcs
 from ..utils import mesh as mesh_mod
+from ..utils.obs import stage
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from . import _build
 
@@ -245,14 +246,27 @@ def evaluate_lag_grid_warp(
     """
     if not k1_applies(method, order, np.shape(small_img), np.shape(ref_img)):
         return None
+    with stage("k1_s", card=True):
+        return _evaluate_k1(small_img, ref_img, lon, lat, base_params,
+                            (lag_crval1, lag_crval2, lag_cdelt1, lag_cdelt2,
+                             lag_crota), order=order, kind=kind,
+                            device=device, compute_dtype=compute_dtype,
+                            mesh=mesh)
+
+
+def _evaluate_k1(small_img, ref_img, lon, lat, base_params, lag_axes, *,
+                 order, kind, device, compute_dtype, mesh):
+    """:func:`evaluate_lag_grid_warp` once K1 applies: from the upload to
+    the scores on the host."""
     dev = resolve_device(device)
     dt = resolve_dtype(compute_dtype)
     devices = mesh_mod.resolve_mesh(mesh) or (dev,)
-    ls = [np.asarray(v, dtype=np.float64) for v in
-          (lag_crval1, lag_crval2, lag_cdelt1, lag_cdelt2, lag_crota)]
+    ls = [np.asarray(v, dtype=np.float64) for v in lag_axes]
     shape5 = tuple(len(v) for v in ls)
-    grids = np.meshgrid(*ls, indexing="ij")
-    lags = np.stack([g.ravel() for g in grids], axis=-1)
+    with stage("lag_route_s"):
+        grids = np.meshgrid(*ls, indexing="ij")
+        lags = np.stack([g.ravel() for g in grids], axis=-1)
+        table = lag_table(base_params, lags)
 
     small = to_tensor(small_img, device=dev, dtype=dt)
     ref = to_tensor(ref_img, device=dev, dtype=dt)
@@ -266,7 +280,6 @@ def evaluate_lag_grid_warp(
     small_c = small - torch.nanmean(small.double()).to(dt)
     canvas = F.pad(small_c[None, None], (PAD, PAD, PAD, PAD),
                    mode="reflect")[0, 0].contiguous()
-    table = lag_table(base_params, lags)
     ranges = mesh_mod.split(lags.shape[0], devices)
     operands = [mesh_mod.replicate(t, devices)
                 for t in (canvas, ref_c, lon_t, lat_t)]

@@ -23,6 +23,7 @@ the CPU).
 """
 from __future__ import annotations
 
+import logging
 import os
 import sys
 import warnings
@@ -34,7 +35,7 @@ from ..core import wcs as wcs_mod
 from ..core.header import ensure_pcij, get_crota, wcs_params_from_header
 from ..engine import carrington as carr_engine
 from ..engine import lag_search
-from ..utils import coords, units
+from ..utils import coords, obs, units
 from ..utils.mesh import default_mesh
 from ..utils.torchcfg import resolve_device, resolve_dtype, to_tensor
 from .results import AlignmentResults
@@ -122,6 +123,7 @@ class Alignment:
         lag_search_mode: str = "auto",
         device="cuda",
     ):
+        self._file_id = obs.new_file_id()  # the id of this file's spans
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.mesh = default_mesh(self.device) if use_device_mesh else None
@@ -183,9 +185,7 @@ class Alignment:
     # data loading / preprocessing (host)
     # ------------------------------------------------------------------
     def _load_pair(self, dtype=np.float64):
-        from ..utils.obs import stage
-
-        with stage("api_fits_load_s"):
+        with obs.stage("api_fits_load_s"):
             self._load_pair_body(dtype)
 
     def _load_pair_body(self, dtype=np.float64):
@@ -211,6 +211,19 @@ class Alignment:
             self.data_small[np.abs(self.data_small) < self.small_fov_value_min] = np.nan
         if self.small_fov_value_max is not None:
             self.data_small[np.abs(self.data_small) > self.small_fov_value_max] = np.nan
+
+    def _prepare_small(self, remove_fov_limits=None, fov_limits=None):
+        """Thresholds, field-of-view limits and the all-NaN check of the
+        small image, before any search."""
+        with obs.stage("api_prepare_s"):
+            self._apply_thresholds()
+            if remove_fov_limits is not None:
+                self._apply_remove_fov(remove_fov_limits)
+            if fov_limits is not None:
+                self._apply_fov_limits(fov_limits)
+            if np.all(np.isnan(self.data_small)):
+                raise ValueError(
+                    "minimum or maximum value have set all small FOV to nan")
 
     def _apply_remove_fov(self, remove_fov_limits, unit="arcsec"):
         """NaN out a world-coordinate box (alignment.py:863-874)."""
@@ -295,12 +308,13 @@ class Alignment:
         remove_fov_limits=None,
     ):
         """Lag search in the helioprojective frame (the main path)."""
-        self._begin_helioprojective(method, fov_limits=fov_limits,
-                                    remove_fov_limits=remove_fov_limits)
-        corr = self._run_projected_search(wrap=True)
-        if return_type == "corr":
-            return corr
-        return self._make_results(corr)
+        with obs.stage("api_align_s", file=self._file_id):
+            self._begin_helioprojective(method, fov_limits=fov_limits,
+                                        remove_fov_limits=remove_fov_limits)
+            corr = self._run_projected_search(wrap=True)
+            if return_type == "corr":
+                return corr
+            return self._make_results(corr)
 
     def _begin_helioprojective(self, method: str, fov_limits=None,
                                remove_fov_limits=None):
@@ -312,30 +326,23 @@ class Alignment:
         self.coordinate_frame = "final_helioprojective"
         if self.data_small is None:
             self._load_pair()
-        self._apply_thresholds()
-        if remove_fov_limits is not None:
-            self._apply_remove_fov(remove_fov_limits)
-        if fov_limits is not None:
-            self._apply_fov_limits(fov_limits)
-        if np.all(np.isnan(self.data_small)):
-            raise ValueError("minimum or maximum value have set all small FOV to nan")
+        self._prepare_small(remove_fov_limits, fov_limits)
 
     def align_using_initial_carrington(
         self, method: str = "correlation", return_type: str = "AlignmentResults"
     ):
         """Lag search for inputs already in Carrington (CAR) coordinates
         (alignment.py:344-399)."""
-        self.method = method
-        self.coordinate_frame = "initial_carrington"
-        if self.data_small is None:
-            self._load_pair(dtype=np.float64)
-        self._apply_thresholds()
-        if np.all(np.isnan(self.data_small)):
-            raise ValueError("minimum or maximum value have set all small FOV to nan")
-        corr = self._run_projected_search(wrap=False)
-        if return_type == "corr":
-            return corr
-        return self._make_results(corr)
+        with obs.stage("api_align_s", file=self._file_id):
+            self.method = method
+            self.coordinate_frame = "initial_carrington"
+            if self.data_small is None:
+                self._load_pair(dtype=np.float64)
+            self._prepare_small()
+            corr = self._run_projected_search(wrap=False)
+            if return_type == "corr":
+                return corr
+            return self._make_results(corr)
 
     def align_using_carrington(
         self,
@@ -363,13 +370,19 @@ class Alignment:
             raise ValueError(
                 "method_carrington_reprojection must be either 'fa' or 'sunpy'"
             )
+        with obs.stage("api_align_s", file=self._file_id):
+            return self._align_carrington(
+                lonlims, latlims, size_deg_carrington, shape, reference_date,
+                method, method_carrington_reprojection, return_type)
+
+    def _align_carrington(self, lonlims, latlims, size_deg_carrington, shape,
+                          reference_date, method,
+                          method_carrington_reprojection, return_type):
         self.method = method
         self.coordinate_frame = "final_carrington"
         if self.data_small is None:
             self._load_pair()
-        self._apply_thresholds()
-        if np.all(np.isnan(self.data_small)):
-            raise ValueError("minimum or maximum value have set all small FOV to nan")
+        self._prepare_small()
 
         if method_carrington_reprojection == "sunpy":
             corr = self._run_solar_surface_search()
@@ -417,14 +430,12 @@ class Alignment:
         """Carrington explicit-grid search body: one reprojection of the
         reference image and one lag search per ``lag_solar_r``, stacked on
         the last axis (alignment.py:144-261)."""
-        from ..utils.obs import stage
-
         l1, l2, l3, l4, l5 = self._lags_deg(wrap=True)
         large = self._to_device(self.data_large)
         small = self._to_device(self.data_small)
         corr_parts = []
         for d_solar_r in self.lag_solar_r:
-            with stage("carr_api_reproject_s"):
+            with obs.stage("carr_api_reproject_s", card=True):
                 ref_img = carr_engine.reproject_to_carrington(
                     large, self.hdr_large, self.lonlims, self.latlims,
                     self.shape, d_solar_r=float(d_solar_r),
@@ -432,7 +443,8 @@ class Alignment:
                     order=self.order, device=self.device,
                     compute_dtype=self.compute_dtype, as_numpy=False)
             self._save_carrington_figures(ref_img, d_solar_r, rate_wave)
-            with self._progress_scope():
+            with obs.stage("api_search_s", level=logging.INFO), \
+                    self._progress_scope():
                 corr5 = carr_engine.evaluate_lag_grid_carrington(
                     small, ref_img, self.hdr_small, self.lonlims,
                     self.latlims, self.shape, l1, l2, l3, l4, l5,
@@ -453,8 +465,6 @@ class Alignment:
         the per-lag reprojection (shifted small WCS onto the original small
         WCS at equal obstime) is then plain WCS resampling, i.e. the
         projected-frame engine, so every helioprojective path applies."""
-        from ..utils.obs import logger, timed
-
         small_params = wcs_params_from_header(self.hdr_small)
         kind = small_params.kind
         h, w = self.data_small.shape
@@ -467,20 +477,20 @@ class Alignment:
         n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)
         allow_fast = self._allow_fast_mode((l1, l2, l3, l4, l5),
                                             self.data_small.shape)
-        logger.info("solar-surface (sunpy-equivalent) search: %d candidates, "
-                    "mode=%s", n_lags * len(self.lag_solar_r),
-                    self.lag_search_mode)
+        obs.logger.info("solar-surface (sunpy-equivalent) search: %d "
+                        "candidates, mode=%s", n_lags * len(self.lag_solar_r),
+                        self.lag_search_mode)
 
         small = self._to_device(self.data_small)
         corr_parts = []
         for d_solar_r in self.lag_solar_r:
-            with timed("solar-surface reprojection (reference -> small WCS)"):
+            with obs.stage("solar_surface_reproject_s", level=logging.INFO):
                 ref_img = carr_engine.reproject_solar_surface(
                     self.data_large, self.hdr_large, self.hdr_small,
                     d_solar_r=float(d_solar_r), order=self.order,
                     device=self.device, compute_dtype=self.compute_dtype)
             self._save_solar_surface_figures(ref_img)
-            with timed(f"lag-grid search ({n_lags} candidates)"), \
+            with obs.stage("api_search_s", level=logging.INFO), \
                     self._progress_scope():
                 corr5 = lag_search.evaluate_lag_grid(
                     small, ref_img, lon, lat, base, l1, l2, l3, l4, l5,
@@ -497,8 +507,6 @@ class Alignment:
 
         Returns ``(lon, lat, ref_img, base, kind)`` with the arrays as
         tensors on ``self.device``."""
-        from ..utils.obs import timed
-
         small_params = wcs_params_from_header(self.hdr_small)
         large_params = wcs_params_from_header(self.hdr_large)
         kind = small_params.kind
@@ -517,11 +525,10 @@ class Alignment:
             if max(np.max(np.abs(pl_pr)), np.max(np.abs(pb_pr))) < 170.0:
                 do_wrap = False
 
-        with timed("submap (reference image -> comparison grid)"):
-            lon, lat, ref_img = lag_search.prepare_grid_and_submap(
-                self.data_large, small_params.as_dict(),
-                large_params.as_dict(), h, w, kind, do_wrap, self.order,
-                device=self.device, compute_dtype=self.compute_dtype)
+        lon, lat, ref_img = lag_search.prepare_grid_and_submap(
+            self.data_large, small_params.as_dict(), large_params.as_dict(),
+            h, w, kind, do_wrap, self.order, device=self.device,
+            compute_dtype=self.compute_dtype)
 
         # the displacement model's probe world values come from the small
         # header's WCS in float64, as the JAX package seeds them (its
@@ -639,23 +646,21 @@ class Alignment:
 
     def _run_projected_search(self, wrap: bool):
         """Shared helioprojective / initial-carrington search body."""
-        from ..utils.obs import logger, timed
-
         if self.display_progress_bar:
-            from ..utils.obs import enable_console_logging
-
-            enable_console_logging()
+            obs.enable_console_logging()
 
         lon, lat, ref_img, base, kind = self._prepare_projected_operands(wrap)
         self._save_projected_figures(ref_img)
 
         l1, l2, l3, l4, l5 = self._lags_deg(wrap=wrap)
         n_lags = len(l1) * len(l2) * len(l3) * len(l4) * len(l5)
-        allow_fast = self._allow_fast_mode((l1, l2, l3, l4, l5),
-                                            self.data_small.shape)
-        logger.info("lag search: %d candidates, mode=%s, order=%d",
-                    n_lags * len(self.lag_solar_r), self.lag_search_mode, self.order)
-        with timed(f"lag-grid search ({n_lags} candidates)"), \
+        with obs.stage("lag_route_s"):
+            allow_fast = self._allow_fast_mode((l1, l2, l3, l4, l5),
+                                                self.data_small.shape)
+        obs.logger.info("lag search: %d candidates, mode=%s, order=%d",
+                        n_lags * len(self.lag_solar_r), self.lag_search_mode,
+                        self.order)
+        with obs.stage("api_search_s", level=logging.INFO), \
                 self._progress_scope():
             corr5 = lag_search.evaluate_lag_grid(
                 self._to_device(self.data_small), ref_img, lon, lat, base,
@@ -675,8 +680,6 @@ class Alignment:
     def _progress_scope(self):
         """Console progress bar for long public-API calls when
         ``display_progress_bar=True`` (the reference's tqdm bar)."""
-        from ..utils import obs
-
         return obs.console_progress_bar(self.display_progress_bar)
 
     def _allow_fast_mode(self, lags, shape):

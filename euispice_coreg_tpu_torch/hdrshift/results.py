@@ -16,7 +16,7 @@ import numpy as np
 from scipy.optimize import curve_fit
 
 from ..core.header import correct_pointing_header
-from ..utils import units
+from ..utils import obs, units
 
 # what a CompImageHDU carries of its file's compression (io/fits.py)
 _COMPRESSION_SETTINGS = ("compression_type", "quantize_level",
@@ -68,7 +68,6 @@ class AlignmentResults:
         if corr.ndim == 5:
             corr = corr[..., np.newaxis]
         self.corr = corr
-        self.max_index = np.unravel_index(np.nanargmax(corr), corr.shape)
         self.unit_lag = unit_lag
 
         self.parameters_alignment = {
@@ -88,7 +87,12 @@ class AlignmentResults:
         self.reference_image_window = reference_image_window
         self.shift_pixels = None
         self.shift_arcsec = None
-        self._compute_shift()
+        # the spans of the fit and of return_corrected_header run under the
+        # file id of the search that made this result
+        self._file_id = obs.current_file()
+        with obs.stage("api_fit_s"):
+            self.max_index = np.unravel_index(np.nanargmax(corr), corr.shape)
+            self._compute_shift()
 
     # ------------------------------------------------------------------
     def _argmax_shift(self):
@@ -264,16 +268,17 @@ class AlignmentResults:
             if self.image_to_align_path is None:
                 raise ValueError("Please provide a path_to_l2_input parameter")
             path_to_l2_input = self.image_to_align_path
-        hdul = fits.open(path_to_l2_input)
-        header = hdul[window].header.copy()
-        correct_pointing_header(
-            header,
-            lag_crval1=self.shift_arcsec[0],
-            lag_crval2=self.shift_arcsec[1],
-            lag_cdelt1=self.shift_arcsec[2],
-            lag_cdelt2=self.shift_arcsec[3],
-            lag_crota=self.shift_arcsec[4],
-        )
+        with obs.stage("api_corrected_header_s", file=self._file_id):
+            hdul = fits.open(path_to_l2_input)
+            header = hdul[window].header.copy()
+            correct_pointing_header(
+                header,
+                lag_crval1=self.shift_arcsec[0],
+                lag_crval2=self.shift_arcsec[1],
+                lag_cdelt1=self.shift_arcsec[2],
+                lag_cdelt2=self.shift_arcsec[3],
+                lag_crota=self.shift_arcsec[4],
+            )
         return header
 
     def savefig(self, filename: str, **kwargs):

@@ -25,6 +25,7 @@ import re
 import numpy as np
 
 from ..core.header import Header
+from ..utils import obs
 
 BLOCK = 2880
 CARD = 80
@@ -270,9 +271,9 @@ def open(path_or_url, mode: str = "readonly") -> HDUList:  # noqa: A001
         resp.raise_for_status()
         fobj = _io.BytesIO(resp.content)
     else:
-        fobj = _io.BytesIO(
-            np.fromfile(os.fspath(path_or_url), dtype=np.uint8).tobytes()
-        )
+        blob = np.fromfile(os.fspath(path_or_url), dtype=np.uint8).tobytes()
+        obs.count("fits_read_bytes", len(blob))
+        fobj = _io.BytesIO(blob)
 
     # transparently handle gzip-compressed whole files (*.fits.gz), like
     # astropy.io.fits does for the reference

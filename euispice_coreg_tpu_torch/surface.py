@@ -102,4 +102,11 @@ PARAMETER_DIFFERENCES = {
     "engine.tile_fft.evaluate_select_tile_fft(vs_k2)": (
         "holds the plan to K2's estimated time on the card; \"auto\" on a "
         "card sets it"),
+    "utils.obs.stage(card)": (
+        "marks a span that queues card work it does not wait for, whose "
+        "card extent a collect_stages() scope keeps"),
+    "utils.obs.stage(file)": (
+        "the file id a span and the spans inside it run under"),
+    "utils.obs.stage(level)": (
+        "the log level of the span's line: stage is also the port's timed"),
 }

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import obs
+
 _DTYPES = {
     "float32": torch.float32,
     "float64": torch.float64,
@@ -43,10 +45,18 @@ def resolve_dtype(dtype) -> torch.dtype:
 def to_tensor(a, *, device, dtype) -> torch.Tensor:
     """numpy array or tensor -> contiguous tensor on ``device`` in ``dtype``.
     Arrays are copied (never aliased); tensors already in place are
-    returned as they are."""
+    returned as they are.  What goes from the host to a card counts under
+    ``htod_bytes`` (:func:`obs.count`)."""
     if not isinstance(a, torch.Tensor):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-    return a.to(device=device, dtype=dtype).contiguous()
+        with obs.stage("htod_copy_s"):
+            t = torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        if t.device.type == "cuda":
+            obs.count("htod_bytes", t.nbytes)
+        return t
+    t = a.to(device=device, dtype=dtype).contiguous()
+    if a.device.type == "cpu" and t.device.type == "cuda":
+        obs.count("htod_bytes", t.nbytes)
+    return t
 
 
 def from_jax_state(base_params, small, ref, lon, lat, *, device, dtype):

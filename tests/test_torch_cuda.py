@@ -246,3 +246,32 @@ def test_movie_evaluator_on_card_matches_per_frame(cuda):
                 want = fast_corr.evaluate_from_displacements(
                     smalls[f], refs[f], cs[f], 0.0, **kw)
                 np.testing.assert_allclose(got[f], want, atol=1e-9)
+
+
+def test_card_span_reads_the_card_extent(cuda):
+    """A card span around queued card work that it does not wait for: its
+    card extent covers the work (timed by its own events inside the span),
+    while its host seconds read the enqueue only.  Host-to-card copies
+    count their bytes."""
+    from euispice_coreg_tpu_torch.utils import obs
+    from euispice_coreg_tpu_torch.utils.torchcfg import to_tensor
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    inner = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with obs.collect_stages() as st:
+        with obs.stage("sleep_s", card=True):
+            inner[0].record()
+            torch.cuda._sleep(100_000_000)   # ~50 ms on an H100
+            inner[1].record()
+        assert st.card == {}   # resolved when the scope closes
+        to_tensor(np.zeros((256, 128)), device=cuda, dtype=torch.float32)
+    slept = inner[0].elapsed_time(inner[1]) * 1e-3
+    assert slept > 0.01
+    assert st.card["sleep_s"] >= slept
+    assert st["sleep_s"] < 0.1 * st.card["sleep_s"]
+    assert st.spans[0].card_s == st.card["sleep_s"]
+    assert st.counters == {"htod_bytes": 256 * 128 * 4}
+    print(f"card span: sleep {slept * 1e3:.3f} ms, card extent "
+          f"{st.card['sleep_s'] * 1e3:.3f} ms, host {st['sleep_s'] * 1e3:.3f}"
+          " ms")
