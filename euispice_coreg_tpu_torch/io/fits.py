@@ -15,12 +15,26 @@ FITS 4.0 byte format directly:
 
 Headers parse into :class:`euispice_coreg_tpu_torch.core.header.Header`;
 data into numpy arrays.
+
+:func:`open` parses every header at once and reads each data unit only when
+its HDU's ``.data`` is first asked for, in one pass from the file's bytes to
+the final array (byte swap and scaling fused into that pass), then keeps it.
+A local file is mapped read-only and its descriptor closed at once: an open
+:class:`HDUList` pins no descriptor, and ``.data`` gives the bytes the file
+held at open even after the path is replaced (:func:`write` publishes by
+atomic rename).  URLs, ``bytes``, file-like objects and whole-file gzip are
+read into memory at open and decoded from there on demand.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import io as _io
+import mmap
 import os
 import re
+import stat
+import weakref
 
 import numpy as np
 
@@ -58,6 +72,19 @@ class HDU:
         self.data = data
         if name is not None:
             self.header["EXTNAME"] = name
+
+    @property
+    def data(self):
+        """The array; an HDU from :func:`open` reads its data unit on first
+        access and keeps it."""
+        if self._read is not None:
+            self._data = self._read()
+            self._read = None
+        return self._data
+
+    @data.setter
+    def data(self, value):
+        self._data, self._read = value, None
 
     @property
     def name(self):
@@ -258,66 +285,180 @@ def _read_bintable_raw(fobj, hdr: Header):
     return raw, naxis1, naxis2
 
 
+class _Cursor:
+    """``read``/``tell`` over a buffer, for :func:`_parse_header_blocks`."""
+
+    def __init__(self, view):
+        self.view, self.pos = view, 0
+
+    def read(self, n):
+        out = self.view[self.pos:self.pos + n].tobytes()
+        self.pos += len(out)
+        return out
+
+    def tell(self):
+        return self.pos
+
+
+@functools.cache
+def _libc():
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long)
+    libc.munmap.restype = ctypes.c_int
+    libc.munmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t)
+    return libc
+
+
+class _MappedFile:
+    """A local regular file mapped read-only, its descriptor closed as soon as
+    the map is made (Python 3.12's ``mmap`` keeps a duplicate descriptor per
+    map, so libc's ``mmap`` is called directly).  ``view`` is valid while
+    this object lives: the HDUs that have still to read their data unit hold
+    it, and the last of them to go unmaps the file."""
+
+    def __init__(self, path, fd, size):
+        libc = _libc()
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_PRIVATE, fd, 0)
+        if addr in (None, ctypes.c_void_p(-1).value):
+            err = ctypes.get_errno()
+            raise OSError(err, os.strerror(err), path)
+        weakref.finalize(self, libc.munmap, addr, size)
+        self.path = os.path.abspath(path)
+        st = os.fstat(fd)
+        self.inode = (st.st_dev, st.st_ino)
+        self.view = memoryview(
+            (ctypes.c_ubyte * size).from_address(addr)).toreadonly()
+
+    @classmethod
+    def open(cls, path):
+        """The map of ``path``; None for an empty or irregular file (a pipe,
+        a device), which is read whole instead."""
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            st = os.fstat(fd)
+            if not (stat.S_ISREG(st.st_mode) and st.st_size):
+                return None
+            try:
+                return cls(path, fd, st.st_size)
+            except OSError:  # a file system that cannot map
+                return None
+        finally:
+            os.close(fd)
+
+    def check(self, end):
+        """Raise EOFError where the file was cut short in place since it was
+        mapped (reading a map past its file's end kills the process); a
+        replaced or removed path leaves the mapped inode whole."""
+        try:
+            st = os.stat(self.path)
+        except OSError:
+            return
+        if (st.st_dev, st.st_ino) == self.inode and st.st_size < end:
+            raise EOFError(f"{self.path} was truncated since it was opened")
+
+
+def _deferred(view, mapped, off, nbytes, decode):
+    """The reader of the data unit of ``nbytes`` at ``off`` in ``view``:
+    ``decode`` of those bytes, counted as read from disk where ``view`` is
+    the map ``mapped`` of a local file."""
+    def read():
+        if mapped is not None:
+            mapped.check(off + nbytes)
+            obs.count("fits_read_bytes", nbytes)
+        obs.count("fits_data_units_read", 1)
+        return decode(view[off:off + nbytes])
+    return read
+
+
+def _decode_image(hdr: Header, shape, dtype, buf):
+    return _apply_scaling(np.frombuffer(buf, dtype=dtype).reshape(shape), hdr)
+
+
+def _decode_compressed(hdr: Header, buf):
+    from . import tile_compression
+
+    return tile_compression.decompress_hdu(hdr, buf.tobytes())
+
+
 def open(path_or_url, mode: str = "readonly") -> HDUList:  # noqa: A001
-    """Open a FITS file (local path or http(s) URL) fully into memory."""
+    """Open a FITS file (local path, http(s) URL, ``bytes`` or file-like):
+    every header at once, each data unit on the first access of its HDU's
+    ``.data``."""
+    mapped = None
     if isinstance(path_or_url, (bytes, bytearray)):
-        fobj = _io.BytesIO(path_or_url)
+        view = memoryview(bytes(path_or_url))
     elif hasattr(path_or_url, "read"):
-        fobj = path_or_url
+        view = memoryview(path_or_url.read())
     elif str(path_or_url).startswith(("http://", "https://")):
         import requests
 
         resp = requests.get(str(path_or_url), timeout=120)
         resp.raise_for_status()
-        fobj = _io.BytesIO(resp.content)
+        view = memoryview(resp.content)
     else:
-        blob = np.fromfile(os.fspath(path_or_url), dtype=np.uint8).tobytes()
-        obs.count("fits_read_bytes", len(blob))
-        fobj = _io.BytesIO(blob)
+        path = os.fspath(path_or_url)
+        mapped = _MappedFile.open(path)
+        if mapped is None:
+            view = memoryview(np.fromfile(path, dtype=np.uint8).tobytes())
+            obs.count("fits_read_bytes", len(view))
+        else:
+            view = mapped.view
 
     # transparently handle gzip-compressed whole files (*.fits.gz), like
     # astropy.io.fits does for the reference
-    head = fobj.read(2)
-    fobj.seek(-len(head), 1)
-    if head == b"\x1f\x8b":
+    if view[:2].tobytes() == b"\x1f\x8b":
         import gzip as _gzip
 
-        fobj = _io.BytesIO(_gzip.decompress(fobj.read()))
+        if mapped is not None:
+            obs.count("fits_read_bytes", len(view))
+        view, mapped = memoryview(_gzip.decompress(view)), None
 
     hdus = HDUList()
-    first = True
-    while True:
-        pos = fobj.tell()
-        probe = fobj.read(1)
-        if not probe:
-            break
-        fobj.seek(pos)
-        hdr = _parse_header_blocks(fobj)
+    cur = _Cursor(view)
+    while cur.pos < len(view):
+        start = cur.pos
+        hdr = _parse_header_blocks(cur)
+        if mapped is not None:
+            obs.count("fits_read_bytes", cur.pos - start)
         xtension = str(hdr.get("XTENSION", "")).strip()
-        if first:
-            hdus.append(PrimaryHDU(data=_read_data(fobj, hdr), header=hdr))
-            first = False
-        elif xtension == "IMAGE":
-            hdus.append(ImageHDU(data=_read_data(fobj, hdr), header=hdr))
+        decode = None
+        if not hdus or xtension == "IMAGE":
+            hdu = (ImageHDU if hdus else PrimaryHDU)(header=hdr)
+            shape = _data_shape(hdr)
+            dtype = _BITPIX_DTYPE[int(hdr["BITPIX"])]
+            n = int(np.prod(shape)) if shape else 0
+            span = ((n + int(hdr.get("PCOUNT", 0))) * int(hdr.get("GCOUNT", 1))
+                    * dtype.itemsize)
+            if span > len(view) - cur.pos:
+                raise EOFError("truncated FITS data")
+            if n:
+                nbytes = n * dtype.itemsize
+                decode = functools.partial(_decode_image, hdr, shape, dtype)
         elif xtension == "BINTABLE" and hdr.get("ZIMAGE"):
-            raw, naxis1, naxis2 = _read_bintable_raw(fobj, hdr)
             from . import tile_compression
 
-            data = tile_compression.decompress_hdu(hdr, raw)
             # carry the file's compression settings so a re-write keeps its
             # format (ZCMPTYPE/ZQUANTIZ/NOISEBIT/tiles) instead of reverting
             # to writer defaults
-            hdus.append(CompImageHDU(
-                data=data, header=hdr,
-                **tile_compression.hdu_settings_from_header(hdr)))
+            hdu = CompImageHDU(
+                header=hdr, **tile_compression.hdu_settings_from_header(hdr))
+            span = nbytes = (int(hdr["NAXIS1"]) * int(hdr["NAXIS2"])
+                             + int(hdr.get("PCOUNT", 0)))
+            if span > len(view) - cur.pos:
+                raise EOFError("truncated FITS binary table")
+            decode = functools.partial(_decode_compressed, hdr)
         else:
             # unknown extension: skip payload, keep header only
-            naxis1 = int(hdr.get("NAXIS1", 0))
-            naxis2 = int(hdr.get("NAXIS2", 0))
-            pcount = int(hdr.get("PCOUNT", 0))
-            nbytes = naxis1 * naxis2 + pcount
-            fobj.seek(nbytes + ((-nbytes) % BLOCK), 1)
-            hdus.append(HDU(data=None, header=hdr))
+            hdu = HDU(header=hdr)
+            span = (int(hdr.get("NAXIS1", 0)) * int(hdr.get("NAXIS2", 0))
+                    + int(hdr.get("PCOUNT", 0)))
+        if decode is not None:
+            hdu._read = _deferred(view, mapped, cur.pos, nbytes, decode)
+            obs.count("fits_data_units", 1)
+        cur.pos += span + (-span) % BLOCK
+        hdus.append(hdu)
     return hdus
 
 

@@ -179,3 +179,24 @@ def test_probe_values_read_tensors_and_arrays():
     b = lag_search.probe_values(torch.as_tensor(lon), torch.as_tensor(lat))
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+def test_return_corrected_header_reads_no_data_unit(tmp_path):
+    """The corrected header is the one the whole-file reader gave (the JAX
+    package's reader and ``correct_pointing_header`` on the port's shift),
+    and the re-read of the small file reads its header blocks alone."""
+    from euispice_coreg_tpu.core.header import correct_pointing_header
+    from euispice_coreg_tpu_torch.utils import obs
+
+    p_large, p_small = write_pair(tmp_path, "fixture")
+    res = Alignment(large_fov_known_pointing=p_large,
+                    small_fov_to_correct=p_small, small_fov_window=0,
+                    large_fov_window=0, lag_crval1=LAG1, lag_crval2=LAG2,
+                    device="cpu").align_using_helioprojective()
+    with obs.collect_stages() as st:
+        got = res.return_corrected_header(0)
+    assert st.counters.get("fits_data_units") == 1
+    assert "fits_data_units_read" not in st.counters
+    want = jfits.open(p_small)[0].header.copy()
+    correct_pointing_header(want, *res.shift_arcsec)
+    assert dict(got.items()) == dict(want.items())

@@ -456,3 +456,258 @@ def test_writes_bytes_identical_to_jax(tmp_path, ctype, method):
     step = tc.quantization_steps(str(p_t), 1)
     assert (np.abs(got[fin] - data[fin]) <= 0.5 * step[fin] + 1e-5).all()
     assert (step > 0).any() == (method is not None)
+
+
+# ---------------------------------------------------------------------------
+# the lazy reader: each data unit read on first access, in one pass
+# ---------------------------------------------------------------------------
+
+def _eager_read(blob):
+    """The whole-file reader ``fits.open`` replaced, walked with the
+    module's own block helpers: (class name, header, data) per HDU."""
+    import gzip
+    import io
+
+    if blob[:2] == b"\x1f\x8b":
+        blob = gzip.decompress(blob)
+    fobj, out = io.BytesIO(blob), []
+    while fobj.tell() < len(blob):
+        hdr = fits._parse_header_blocks(fobj)
+        xt = str(hdr.get("XTENSION", "")).strip()
+        if not out or xt == "IMAGE":
+            cls = "ImageHDU" if out else "PrimaryHDU"
+            out.append((cls, hdr, fits._read_data(fobj, hdr)))
+        else:
+            raw, _, _ = fits._read_bintable_raw(fobj, hdr)
+            out.append(("CompImageHDU", hdr, tc.decompress_hdu(hdr, raw)))
+    return out
+
+
+def _scaled_blob():
+    """int16 BSCALE/BZERO/BLANK primary, uint8 with BLANK and int32 with
+    BZERO 2**31 (unsigned) extensions, cards written by hand."""
+    def unit(cards, raw):
+        payload = raw.tobytes()
+        return (fits._serialize_header([fits._make_card(k, v) for k, v in cards])
+                + payload + b"\x00" * ((-len(payload)) % fits.BLOCK))
+
+    def shape_cards(first, bitpix, shape):
+        head = [("SIMPLE", True)] if first else [("XTENSION", "IMAGE")]
+        dims = [(f"NAXIS{i + 1}", n) for i, n in enumerate(reversed(shape))]
+        tail = [] if first else [("PCOUNT", 0), ("GCOUNT", 1)]
+        return head + [("BITPIX", bitpix), ("NAXIS", len(shape))] + dims + tail
+
+    i16 = np.array([[0, 100, -32768], [200, -5, 7]], dtype=">i2")
+    u8 = np.arange(12, dtype=">u1").reshape(3, 4)
+    i32 = np.array([[-2**31, 0], [5, 2**31 - 1]], dtype=">i4")
+    return (unit(shape_cards(True, 16, i16.shape) + [
+        ("BSCALE", 0.5), ("BZERO", 10.0), ("BLANK", -5)], i16)
+        + unit(shape_cards(False, 8, u8.shape) + [
+            ("BLANK", 3), ("EXTNAME", "U8")], u8)
+        + unit(shape_cards(False, 32, i32.shape) + [
+            ("BZERO", 2**31), ("EXTNAME", "U32")], i32))
+
+
+def _lazy_case(tmp_path, case):
+    """``(source, blob)``: what ``fits.open`` is given, and the file's bytes."""
+    import gzip
+    import io
+
+    rng = np.random.default_rng(7)
+    path = tmp_path / f"{case}.fits"
+    hdus = None
+    if case.startswith("bitpix"):
+        dtype = {"8": np.uint8, "16": np.int16, "32": np.int32,
+                 "64": np.int64, "-32": np.float32,
+                 "-64": np.float64}[case[len("bitpix"):]]
+        data = (rng.normal(0, 50, size=(13, 17)) if dtype in (
+            np.float32, np.float64) else rng.integers(0, 250, size=(13, 17)))
+        data = data.astype(dtype)
+        if data.dtype.kind == "f":
+            data[2, 3] = data[7, 0] = np.nan
+        hdus = [fits.PrimaryHDU(data=data, header=Header({"CRVAL1": 1.5}))]
+    elif case == "scaled":
+        path.write_bytes(_scaled_blob())
+    elif case in ("multi_ext", "extname_negative"):
+        first = (fits.PrimaryHDU() if case == "extname_negative"
+                 else fits.PrimaryHDU(data=np.ones((3, 4), np.int16)))
+        hdus = [first] + [
+            fits.ImageHDU(data=rng.normal(size=(5, 6)).astype(dt), name=nm)
+            for dt, nm in ((np.float32, "A"), (np.float64, "He II 304"),
+                           (np.int32, "C"))]
+    elif case in ("cube3d", "cube4d"):
+        shape = (3, 4, 5) if case == "cube3d" else (2, 3, 4, 5)
+        hdus = [fits.PrimaryHDU(
+            data=np.arange(np.prod(shape), dtype=np.float32).reshape(shape))]
+    elif case in ("rice", "gzip_tiles"):
+        ints = rng.integers(0, 4000, size=(24, 40)).astype(np.int32)
+        flt = _smooth_float_image(ny=24, nx=40, seed=9)
+        flt[4, 5] = np.nan
+        ctypes = (("RICE_1", "RICE_1") if case == "rice"
+                  else ("GZIP_1", "GZIP_2"))
+        hdus = [fits.PrimaryHDU(data=np.zeros((2, 2), np.float32))] + [
+            fits.CompImageHDU(data=d, name=f"W{i}", compression_type=ct,
+                              tile_shape=(8, 20), quantize_level=16.0,
+                              quantize_method="SUBTRACTIVE_DITHER_1")
+            for i, (d, ct) in enumerate(zip((ints, flt), ctypes))]
+    else:  # whole_file_gzip, bytes, bytesio
+        hdus = [fits.PrimaryHDU(data=rng.normal(size=(9, 8)).astype(np.float32)),
+                fits.ImageHDU(data=np.arange(6, dtype=np.int16).reshape(2, 3),
+                              name="E")]
+    if hdus is not None:
+        fits.write(path, hdus)
+    blob = path.read_bytes()
+    if case == "whole_file_gzip":
+        blob = gzip.compress(blob)
+        path = tmp_path / "whole.fits.gz"
+        path.write_bytes(blob)
+    source = {"bytes": blob, "bytesio": io.BytesIO(blob)}.get(case, str(path))
+    return source, blob
+
+
+LAZY_CASES = [f"bitpix{b}" for b in (8, 16, 32, 64, -32, -64)] + [
+    "scaled", "multi_ext", "extname_negative", "cube3d", "cube4d", "rice",
+    "gzip_tiles", "whole_file_gzip", "bytes", "bytesio"]
+
+
+@pytest.mark.parametrize("case", LAZY_CASES)
+def test_lazy_reader_matches_eager_and_jax(tmp_path, case):
+    """Nothing is read at open; each HDU's ``.data`` (by position, negative
+    index and EXTNAME) equals the whole-file reader's and the JAX package's:
+    dtype, shape, values, NaN pattern and writability, read once and kept."""
+    from euispice_coreg_tpu_torch.utils import obs
+
+    source, blob = _lazy_case(tmp_path, case)
+    with obs.collect_stages() as st:
+        hdul = fits.open(source)
+    eager, jax = _eager_read(blob), jfits.open(blob)
+    n_units = sum(d is not None for _, _, d in eager)
+    assert n_units and st.counters.get("fits_data_units") == n_units
+    assert "fits_data_units_read" not in st.counters
+    assert ([type(h).__name__ for h in hdul] == [c for c, _, _ in eager]
+            == [type(h).__name__ for h in jax])
+    with obs.collect_stages() as st:
+        for i, (ht, (_, hdr, want), hj) in enumerate(zip(hdul, eager, jax)):
+            assert (dict(ht.header.items()) == dict(hdr.items())
+                    == dict(hj.header.items()))
+            views = [ht, hdul[i - len(hdul)]]
+            if "EXTNAME" in ht.header:
+                views.append(hdul[ht.header["EXTNAME"]])
+            for h in views:
+                if want is None:
+                    assert h.data is None and hj.data is None
+                    continue
+                assert h.data is ht.data
+                for ref in (want, hj.data):
+                    assert_same_arrays(h.data, ref)
+                    if ref.dtype.kind == "f":
+                        assert np.array_equal(np.isnan(h.data), np.isnan(ref))
+                    assert h.data.flags.writeable == ref.flags.writeable
+    assert st.counters.get("fits_data_units_read") == n_units
+
+
+def _write_2048(path, value=1.0):
+    data = np.full((2048, 2048), value, dtype=np.float32)
+    fits.write(path, [fits.PrimaryHDU(data=data, header=Header({"X": value}))])
+    return data
+
+
+def test_header_only_open_reads_only_header_blocks(tmp_path):
+    from euispice_coreg_tpu_torch.utils import obs
+
+    path = tmp_path / "big.fits"
+    data = _write_2048(path)
+    size = path.stat().st_size
+    header_bytes = size - data.nbytes - (-data.nbytes) % fits.BLOCK
+    with obs.collect_stages() as st:
+        assert fits.open(path)[0].header["X"] == 1.0
+    assert st.counters == {"fits_read_bytes": header_bytes,
+                           "fits_data_units": 1}
+    with obs.collect_stages() as st:
+        hdul = fits.open(path)
+        np.testing.assert_array_equal(hdul[0].data, data)
+    assert st.counters == {"fits_read_bytes": header_bytes + data.nbytes,
+                           "fits_data_units": 1, "fits_data_units_read": 1}
+
+
+def test_data_after_atomic_replace_is_the_bytes_at_open(tmp_path):
+    """``fits.write`` publishes by rename; an HDUList opened before reads
+    the file it opened, as does one whose path was removed."""
+    path = tmp_path / "r.fits"
+    old = _write_2048(path, 1.0)
+    before, gone = fits.open(path), fits.open(path)
+    new = _write_2048(path, 2.0)
+    np.testing.assert_array_equal(before[0].data, old)
+    assert before[0].header["X"] == 1.0
+    np.testing.assert_array_equal(fits.open(path)[0].data, new)
+    path.unlink()
+    np.testing.assert_array_equal(gone[0].data, old)
+
+
+@pytest.mark.parametrize("kind", ["image", "compressed"])
+def test_truncated_data_unit_raises_at_open(tmp_path, kind):
+    path = tmp_path / "t.fits"
+    img = np.random.default_rng(2).integers(0, 2**20, size=(60, 70),
+                                            dtype=np.int32)
+    if kind == "image":
+        fits.write(path, [fits.PrimaryHDU(data=img)])
+        cut = fits.BLOCK + img.nbytes - 1
+    else:
+        fits.write(path, [fits.PrimaryHDU(),
+                          fits.CompImageHDU(data=img, tile_shape=(10, 70))])
+        cut = path.stat().st_size - fits.BLOCK - 1
+    blob = path.read_bytes()
+    path.write_bytes(blob[:cut])
+    match = "truncated FITS (data|binary table)"
+    with pytest.raises(EOFError, match=match):
+        fits.open(path)
+    with pytest.raises(EOFError, match=match):
+        fits.open(blob[:cut])
+
+
+def test_data_unit_cut_in_place_after_open_raises_eoferror(tmp_path):
+    """A file cut short in its own inode after open: EOFError on ``.data``,
+    not a fault on reading the map past the file's end."""
+    import os
+
+    path = tmp_path / "c.fits"
+    _write_2048(path)
+    hdul = fits.open(path)
+    os.truncate(path, fits.BLOCK * 2)
+    with pytest.raises(EOFError):
+        hdul[0].data
+
+
+def test_unread_hdulists_pin_no_descriptor(tmp_path):
+    import os
+
+    path = tmp_path / "d.fits"
+    data = np.arange(20 * 30, dtype=np.float32).reshape(20, 30)
+    fits.write(path, [fits.PrimaryHDU(data=data)])
+    before = len(os.listdir("/proc/self/fd"))
+    kept = [fits.open(path) for _ in range(2000)]
+    assert len(os.listdir("/proc/self/fd")) == before
+    np.testing.assert_array_equal(kept[0][0].data, data)
+    np.testing.assert_array_equal(kept[-1][0].data, data)
+
+
+def test_assigning_data_replaces_it(tmp_path):
+    from euispice_coreg_tpu_torch.utils import obs
+
+    path = tmp_path / "a.fits"
+    data = np.arange(12, dtype=np.float32).reshape(3, 4)
+    fits.write(path, [fits.PrimaryHDU(data=data),
+                      fits.ImageHDU(data=data, name="E")])
+    mine = np.zeros((2, 2))
+    with obs.collect_stages() as st:
+        hdul = fits.open(path)
+        hdul[0].data = mine            # before it was read: never read
+        assert hdul[0].data is mine
+        np.testing.assert_array_equal(hdul["E"].data, data)
+        hdul["E"].data = None          # after it was read
+        assert hdul["E"].data is None
+    assert st.counters["fits_data_units_read"] == 1
+    fits.write(tmp_path / "b.fits", hdul)
+    back = fits.open(tmp_path / "b.fits")
+    np.testing.assert_array_equal(back[0].data, mine)
+    assert back[1].data is None

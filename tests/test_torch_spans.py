@@ -3,7 +3,7 @@ CPU: the parent and file id of each span from ``Alignment`` through
 ``align_using_*`` to ``return_corrected_header``, nothing recorded while
 no scope collects and no profiler records, the spans as ranges of a
 ``torch.profiler`` trace that ``coreg_bench.trace`` reads, and the bytes
-``io/fits.open`` counts.  The card extent of a card span is tested on the
+and data units ``io/fits.open`` counts.  The card extent of a card span is tested on the
 card, in ``tests/test_torch_cuda.py``."""
 import os
 
@@ -138,11 +138,20 @@ def test_spans_name_the_idle_time_of_a_profiler_trace(pair):
 
 
 def test_fits_read_bytes_counts_what_is_read(pair):
-    """Both files, and the small one again for the corrected header."""
+    """Both files' header blocks and data units, and the small one's header
+    blocks again for the corrected header, which reads no data unit."""
+    from euispice_coreg_tpu_torch.io import fits
+
+    def header_and_data(path):
+        h = fits.open(path)[0].header
+        data = h["NAXIS1"] * h["NAXIS2"] * abs(h["BITPIX"]) // 8
+        return os.path.getsize(path) - data - (-data) % fits.BLOCK, data
+
     with obs.collect_stages() as st:
         one_file(pair)
-    large, small = (os.path.getsize(p) for p in pair)
-    assert st.counters == {"fits_read_bytes": large + 2 * small}
+    (lh, ld), (sh, sd) = (header_and_data(p) for p in pair)
+    assert st.counters == {"fits_read_bytes": lh + ld + 2 * sh + sd,
+                           "fits_data_units": 3, "fits_data_units_read": 2}
 
 
 def test_timed_is_stage_at_info(caplog):
