@@ -30,14 +30,14 @@ import tempfile  # noqa: E402
 
 import torch  # noqa: E402
 
-from coreg_bench import harness, inputs  # noqa: E402
+from coreg_bench import harness  # noqa: E402
 from coreg_bench.reference import judge  # noqa: E402
 
 
 def program_readings(cell, seed, device, tmp):
     """The judged numbers of the program's answer for every pair of
     ``seed``, and the routes it took."""
-    pairs = [inputs.make_pair(cell.config, cell.workload, seed, k, device)
+    pairs = [cell.make_pair(cell.config, cell.workload, seed, k, device)
              for k in range(cell.workload["pairs"])]
     paths = [cell.write_pair(p, tmp, k) for k, p in enumerate(pairs)]
     log = harness.RouteLog()
@@ -61,7 +61,7 @@ def control_readings(cell, seed, device, dtype=torch.bfloat16):
     ``seed``."""
     worst = {k: 0.0 for k in judge.NUMBERS}
     for k in range(cell.workload["pairs"]):
-        pair = inputs.make_pair(cell.config, cell.workload, seed, k, device)
+        pair = cell.make_pair(cell.config, cell.workload, seed, k, device)
         sample = cell.sample(seed, k, pair["error"])
         ctrl = cell.reference(pair, device, dtype)
         ans = judge.ControlAnswer(ctrl, sample, cell.lags_arcsec, cell.crota,
@@ -99,7 +99,7 @@ def main(argv=None, device="cuda", data_root=None):
     high = {k: float("inf") for k in judge.NUMBERS}
     try:
         if args.seeds:
-            warm = inputs.make_pair(cell.config, cell.workload, 1, 0, dev)
+            warm = cell.make_pair(cell.config, cell.workload, 1, 0, dev)
             cell.call(cell.write_pair(warm, tmp, 0), dev)
         for seed in args.seeds:
             t = time.perf_counter()

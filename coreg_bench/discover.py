@@ -7,11 +7,14 @@
   ``read(rec)`` of the run's records, which returns a number or None when
   the run holds nothing for it to read;
 * ``coreg_bench/frames/<frame>.py`` is the frame a configuration names:
-  ``render``, ``align``, ``reference``, ``ROUTES`` and, where its files
-  are not one uncompressed primary HDU each, ``write_pair``.
+  ``render``, ``align``, ``reference``, ``ROUTES`` and the optional hooks
+  ``make_pair``, ``write_pair`` and ``program`` (see
+  :class:`coreg_bench.harness.Cell` for each hook's default).
 
 A cell, a configuration, a metric or a frame is added as files and
-entries, without an edit of a file that is here.
+entries, without an edit of a file that is here.  Given a ``data_root``
+(the CPU tests' fixtures), configurations and workloads are read from
+there, and a frame is looked for there first.
 """
 from __future__ import annotations
 
@@ -57,17 +60,25 @@ def metrics_for(bench, cell, kind):
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def frame(name):
-    """The module ``frames/<name>.py``."""
+def frame(name, data_root=None):
+    """The module ``<data_root>/frames/<name>.py`` where there is one, else
+    ``coreg_bench.frames.<name>``."""
+    if data_root:
+        path = os.path.join(data_root, "frames", f"{name}.py")
+        if os.path.isfile(path):
+            return _module_at(path, f"coreg_bench_data_frames.{name}")
     return importlib.import_module(f"coreg_bench.frames.{name}")
 
 
 @functools.lru_cache(maxsize=None)
-def reader(name):
-    """``read`` of ``metrics/<name>.py`` (a name may hold dots)."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "coreg_bench.metrics." + name.replace(".", "_"), path)
+def _module_at(path, module_name):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name):
+    """``read`` of ``metrics/<name>.py`` (a name may hold dots)."""
+    return _module_at(os.path.join(HERE, "metrics", f"{name}.py"),
+                      "coreg_bench.metrics." + name.replace(".", "_")).read

@@ -3,14 +3,17 @@ judgement, and the result line.
 
 Everything that belongs to a configuration, a cell or a metric is data
 found by name (:mod:`coreg_bench.discover`); this module holds no cell of
-its own.  The program is called only through its public API:
-``Alignment``, ``AlignmentResults.return_corrected_header``, the kernel
-modules' ``LAUNCHES`` counters and ``utils.obs.collect_stages``; its route
-log lines are read from its logger.
+its own, and a frame module owns its pair, its files and its program call
+(:class:`Cell`).  The program is called only through its public API:
+``Alignment`` (or the class a frame's ``program`` builds),
+``AlignmentResults.return_corrected_header``, the kernel modules'
+``LAUNCHES`` counters and ``utils.obs.collect_stages``; its route log lines
+are read from its logger.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import logging
@@ -88,13 +91,16 @@ def forbidden_modules():
 
 def lags_of(workload, config):
     """The cell's lag axes: (crval1, crval2, cdelt1, cdelt2) in arcsec and
-    CROTA in degrees, as the ``Alignment`` call takes them."""
+    CROTA in degrees, as the ``Alignment`` call takes them.  A CDELT lag is
+    a fraction of the small image's pitch on its own axis:
+    ``config["small"]["cdelt_arcsec"]`` is one pitch or ``[c1, c2]``."""
     lg = workload["lags"]
     crval = [(np.arange(lg[k]["n"]) - lg[k]["n"] // 2) * lg[k]["step_arcsec"]
              for k in ("crval1", "crval2")]
     cdelt = config["small"]["cdelt_arcsec"]
-    frac = [np.asarray(lg.get(k, [0.0]), dtype=np.float64) * cdelt
-            for k in ("cdelt1_frac", "cdelt2_frac")]
+    pitch = cdelt if isinstance(cdelt, list) else (cdelt, cdelt)
+    frac = [np.asarray(lg.get(k, [0.0]), dtype=np.float64) * c
+            for k, c in zip(("cdelt1_frac", "cdelt2_frac"), pitch)]
     crota = np.asarray(lg.get("crota_deg", [0.0]), dtype=np.float64)
     return crval + frac, crota
 
@@ -108,43 +114,78 @@ def truth_index(error, lags_arcsec, crota):
     return (i1, i2, *zero)
 
 
+def alignment(paths, kw):
+    """The default ``program`` hook: ``Alignment`` on the pair's two
+    one-HDU files, both read at window 0, and window 0 of the corrected
+    header."""
+    from euispice_coreg_tpu_torch import Alignment
+
+    return Alignment(large_fov_known_pointing=paths[0],
+                     small_fov_to_correct=paths[1], small_fov_window=0,
+                     large_fov_window=0, **kw), 0
+
+
 class Cell:
-    """A cell's configuration, workload and the program call of one file."""
+    """A cell's configuration, workload and the program call of one file.
+
+    The configuration's frame module may own three hooks; each defaults to
+    the path of the helioprojective and Carrington frames:
+
+    * ``make_pair(config, workload, seed, k, device)``: pair ``k`` of the
+      seed, a dict with at least ``hdr_small`` (the header handed over) and
+      ``error`` (arcsec), and whatever the frame's ``write_pair`` and
+      ``reference`` read; default :func:`inputs.make_pair` with the frame's
+      ``render``;
+    * ``write_pair(pair, directory, k)``: writes the pair's files and
+      returns their paths, any number of them; default
+      :func:`inputs.write_pair`;
+    * ``program(paths, kw)``: the object whose ``align_using_*`` the
+      frame's ``align`` calls, built from those paths and the cell's
+      keywords ``kw`` (lags, ``lag_search_mode``, device, order, dtype), and
+      the HDU index ``return_corrected_header`` is given; default
+      :func:`alignment`.
+    """
 
     def __init__(self, name, data_root):
         self.name = name
         self.workload = discover.workload(name, data_root)
         self.config = discover.config(self.workload["config"], data_root)
-        self.frame = discover.frame(self.config["frame"])
+        self.frame = discover.frame(self.config["frame"], data_root)
+        self.make_pair = getattr(self.frame, "make_pair", None) or \
+            functools.partial(inputs.make_pair, render=self.frame.render)
         self.write_pair = getattr(self.frame, "write_pair", inputs.write_pair)
+        self.program = getattr(self.frame, "program", alignment)
         self.lags_arcsec, self.crota = lags_of(self.workload, self.config)
         self.phases = []  # host seconds of each call's three steps
 
-    def call(self, paths, device):
-        """One user's file: Alignment, the search, the corrected header."""
-        from euispice_coreg_tpu_torch import Alignment
-
+    def keywords(self, device):
+        """The lag grid and settings every ``program`` is given."""
         l1, l2, l3, l4 = self.lags_arcsec
         mixed = (len(l3) > 1 or len(l4) > 1 or len(self.crota) > 1)
         kw = dict(lag_crval1=l1, lag_crval2=l2, lag_search_mode="auto",
-                  small_fov_window=0, large_fov_window=0, device=device,
+                  device=device,
                   reprojection_order=self.config["reprojection_order"],
                   compute_dtype=self.config["compute_dtype"])
         if mixed:
             kw.update(lag_cdelt1=l3, lag_cdelt2=l4, lag_crota=self.crota)
+        return kw
+
+    def call(self, paths, device):
+        """One user's file: the frame's program, the search, the corrected
+        header."""
+        kw = self.keywords(device)
         t0 = time.perf_counter()
         with torch.profiler.record_function("Alignment()"):
-            a = Alignment(large_fov_known_pointing=paths[0],
-                          small_fov_to_correct=paths[1], **kw)
+            a, window = self.program(paths, kw)
         t1 = time.perf_counter()
         with torch.profiler.record_function(
                 f"align_using_{self.config['frame']}"):
             res = self.frame.align(a, self.config)
         t2 = time.perf_counter()
         with torch.profiler.record_function("return_corrected_header"):
-            hdr = res.return_corrected_header(0)
+            hdr = res.return_corrected_header(window)
         self.phases.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
-        return res, {k: float(hdr[k]) for k in judge.HEADER_KEYS}
+        return res, judge.header_values(hdr)
 
     def reference(self, pair, device, dtype=torch.float64):
         """The plain reference of one pair (the frame's, on
@@ -240,7 +281,7 @@ def run_cell(name, seed, seconds, trace_on, *, t0, device="cuda",
     tmp = tempfile.mkdtemp(prefix="coreg_bench_")
     try:
         # set-up: render and write the pairs, warm up on pair 0
-        pairs = [inputs.make_pair(cell.config, wl, seed, k, dev)
+        pairs = [cell.make_pair(cell.config, wl, seed, k, dev)
                  for k in range(wl["pairs"])]
         paths = [cell.write_pair(p, tmp, k) for k, p in enumerate(pairs)]
         gc.collect()

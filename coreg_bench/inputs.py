@@ -23,7 +23,6 @@ import os
 import numpy as np
 import torch
 
-from . import discover
 from .reference import geometry as g
 
 
@@ -86,10 +85,11 @@ def _noisy(img, sigma, gen):
     return img.to(torch.float32).cpu().numpy()
 
 
-def make_pair(config, workload, seed, k, device):
+def make_pair(config, workload, seed, k, device, *, render):
     """Pair ``k`` of ``seed``: ``{"large", "small"}`` float32 arrays,
     ``{"hdr_large", "hdr_small"}`` dicts and ``error`` (arcsec, the shift
-    the search should find)."""
+    the search should find).  ``render`` is the frame's, which draws the
+    two images."""
     rng = pair_rng(seed, k, "pair")
     blobs = _blobs(rng, config["scene"])
     e = rng.uniform(-workload["error_arcsec"], workload["error_arcsec"], 2)
@@ -102,8 +102,7 @@ def make_pair(config, workload, seed, k, device):
                 CRVAL2=given["CRVAL2"] + e[1])
     hdr_large = tan_header(lg["n"], lg["cdelt_arcsec"], lg["crval_arcsec"],
                            lg["crota_deg"], lg.get("header"))
-    large, small = discover.frame(config["frame"]).render(
-        config, blobs, hdr_large, true, device)
+    large, small = render(config, blobs, hdr_large, true, device)
     sigma = config["noise_sigma"]
     return {"large": _noisy(large, sigma, gen),
             "small": _noisy(small, sigma, gen),
@@ -133,22 +132,37 @@ def _card(key, value):
     return f"{key:<8}= {v:>20}".ljust(80)
 
 
-def write_fits(path, data, header):
-    """One primary HDU of big-endian float32 ``data`` under ``header``
-    (the structural keywords are written here, first)."""
-    data = np.asarray(data, dtype=">f4")
-    cards = [_card("SIMPLE", True), _card("BITPIX", -32), _card("NAXIS", 2),
-             _card("NAXIS1", data.shape[1]), _card("NAXIS2", data.shape[0])]
-    cards += [_card(k, v) for k, v in header.items()
-              if k not in ("SIMPLE", "BITPIX", "NAXIS", "NAXIS1", "NAXIS2")]
-    cards.append("END".ljust(80))
-    text = "".join(cards)
-    text += " " * (-len(text) % BLOCK)
-    raw = data.tobytes()
+STRUCTURAL = ("SIMPLE", "XTENSION", "BITPIX", "NAXIS", "EXTEND", "PCOUNT",
+              "GCOUNT")
+
+
+def write_hdus(path, hdus):
+    """A FITS file of one or more HDUs, each ``(data, header)``: the first is
+    the primary (``data`` None for an empty one), the others IMAGE
+    extensions; ``data`` of any number of axes is written as big-endian
+    float32, its last axis as NAXIS1 (the structural keywords are written
+    here, first; EXTEND only where extensions follow)."""
     with open(path, "wb") as f:
-        f.write(text.encode("ascii"))
-        f.write(raw)
-        f.write(b"\0" * (-len(raw) % BLOCK))
+        for i, (data, header) in enumerate(hdus):
+            shape = () if data is None else np.shape(data)
+            cards = [_card("XTENSION", "IMAGE") if i else _card("SIMPLE", True),
+                     _card("BITPIX", 8 if data is None else -32),
+                     _card("NAXIS", len(shape))]
+            cards += [_card(f"NAXIS{a + 1}", n)
+                      for a, n in enumerate(reversed(shape))]
+            if i:
+                cards += [_card("PCOUNT", 0), _card("GCOUNT", 1)]
+            elif len(hdus) > 1:
+                cards.append(_card("EXTEND", True))
+            cards += [_card(k, v) for k, v in header.items()
+                      if k not in STRUCTURAL
+                      and not (k.startswith("NAXIS") and k[5:].isdigit())]
+            cards.append("END".ljust(80))
+            text = "".join(cards)
+            f.write((text + " " * (-len(text) % BLOCK)).encode("ascii"))
+            if data is not None:
+                raw = np.asarray(data, dtype=">f4").tobytes()
+                f.write(raw + b"\0" * (-len(raw) % BLOCK))
 
 
 def write_pair(pair, directory, k):
@@ -156,6 +170,6 @@ def write_pair(pair, directory, k):
     path)."""
     paths = (os.path.join(directory, f"pair{k}_large.fits"),
              os.path.join(directory, f"pair{k}_small.fits"))
-    write_fits(paths[0], pair["large"], pair["hdr_large"])
-    write_fits(paths[1], pair["small"], pair["hdr_small"])
+    write_hdus(paths[0], [(pair["large"], pair["hdr_large"])])
+    write_hdus(paths[1], [(pair["small"], pair["hdr_small"])])
     return paths

@@ -31,6 +31,25 @@ NUMBERS = ("r_gap", "argmax_gap", "header_gap")
 HEADER_KEYS = ("CRVAL1", "CRVAL2", "CDELT1", "CDELT2", "CROTA")
 
 
+def roll_deg(hdr):
+    """A header's roll in degrees: CROTA, else CROTA2, else from its PC
+    matrix as upstream reads it (``sign(-PC1_2) * arccos(PC1_1)``, the
+    sign + where PC1_2 is 0), the form of a SPICE L2 header."""
+    for key in ("CROTA", "CROTA2"):
+        if key in hdr:
+            return float(hdr[key])
+    pc11, pc12 = float(hdr["PC1_1"]), float(hdr["PC1_2"])
+    sign = -1.0 if pc12 > 0.0 else 1.0
+    return sign * math.degrees(math.acos(min(1.0, max(-1.0, pc11))))
+
+
+def header_values(hdr):
+    """The judged keys of a header, CROTA by :func:`roll_deg`."""
+    out = {k: float(hdr[k]) for k in HEADER_KEYS if k != "CROTA"}
+    out["CROTA"] = roll_deg(hdr)
+    return out
+
+
 def gaussian2d(xy, amplitude, xo, yo, sigma_x, sigma_y, offset):
     x, y = xy
     return np.ravel(offset + amplitude * np.exp(
@@ -106,7 +125,7 @@ def fitted_header(scores, argmax, lags_arcsec, crota_lags, given):
             "CRVAL2": given["CRVAL2"] + shift[1],
             "CDELT1": given["CDELT1"] + float(lags_arcsec[2][plane[0]]),
             "CDELT2": given["CDELT2"] + float(lags_arcsec[3][plane[1]]),
-            "CROTA": given["CROTA"] + float(crota_lags[plane[2]])}
+            "CROTA": roll_deg(given) + float(crota_lags[plane[2]])}
 
 
 def header_gap(got, want):

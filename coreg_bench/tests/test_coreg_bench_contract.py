@@ -79,14 +79,16 @@ def test_every_name_is_found(bench):
 
 
 @pytest.mark.parametrize("name", ["hri_fsi_helio_2048", "hri_fsi_carr_2048",
-                                  "tiny_helio", "tiny_carr"])
+                                  "tiny_helio", "tiny_carr", "tiny_helio_ext",
+                                  "tiny_spice"])
 def test_each_configuration_finds_its_frame(name):
-    """A configuration's ``frame`` is a module of ``frames/`` by that name,
-    with what a run calls."""
+    """A configuration's ``frame`` is a module of ``frames/`` (or of the
+    data root's ``frames/``) by that name, with what a run calls."""
     root = DATA if name.startswith("tiny") else None
-    frame = discover.frame(discover.config(name, root)["frame"])
-    for attr in ("render", "align", "reference"):
+    frame = discover.frame(discover.config(name, root)["frame"], root)
+    for attr in ("align", "reference"):
         assert callable(getattr(frame, attr))
+    assert callable(getattr(frame, "make_pair", None) or frame.render)
     assert all(len(r) == 2 for r in frame.ROUTES)
 
 

@@ -12,7 +12,8 @@ SEEDS = (0, 2 ** 31 + 12345, 3 * 2 ** 32 + 7)
 def _pair(cell, seed, k=0):
     wl = discover.workload(cell, DATA)
     cfg = discover.config(wl["config"], DATA)
-    return inputs.make_pair(cfg, wl, seed, k, torch.device("cpu"))
+    return inputs.make_pair(cfg, wl, seed, k, torch.device("cpu"),
+                            render=discover.frame(cfg["frame"]).render)
 
 
 @pytest.mark.parametrize("cell", ["tiny_helio", "tiny_carr"])
