@@ -16,6 +16,11 @@ Counterpart of ``euispice_coreg_tpu/hdrshift/alignment_spice.py``
 The preparation is host float64 numpy.  The iterative context raster scores
 each chunk of lags with one torch function on the device
 (:func:`_iter_chunk_scores`, the JAX package's XLA program of that name).
+Its search runs under ``api_align_s``: the cube read and prepared under
+``spice_load_prep_s``, each chunk's lag headers under ``iter_lag_headers_s``
+(host), its rasters composed under ``iter_compose_s`` and scored under
+``iter_score_s`` (card spans), after one ``engine path: iterative context
+raster`` line.
 The L2/L3 level is inferred from the file path like the reference
 (alignment_spice.py:95-98).
 """
@@ -373,10 +378,11 @@ class AlignmentSpice(Alignment):
 
     def _load_pair_spice(self, coeff):
         """The imager reference and the prepared SPICE map, each under its
-        stage clock (``api_fits_load_s``, ``spice_load_prep_s``)."""
-        with obs.stage("api_fits_load_s"):
+        stage clock (``api_fits_load_s``, ``spice_load_prep_s``) and this
+        file's id."""
+        with obs.stage("api_fits_load_s", file=self._file_id):
             self._extract_imager_data_header()
-        with obs.stage("spice_load_prep_s"):
+        with obs.stage("spice_load_prep_s", file=self._file_id):
             self._extract_spice_data_header(level=self._infer_level(),
                                             coeff=coeff)
 
@@ -515,102 +521,115 @@ class AlignementSpiceIterativeContextRaster(AlignmentSpice):
         self.extend_pixel_size = extend_pixel_size
         self.cut_from_center = cut_from_center
 
-        hdul = fitsio.open(self.small_fov_to_correct)
-        self.header_spice_unflattened = hdul[self.small_fov_window].header.copy()
-        self._extract_spice_data_header(level=self._infer_level(),
-                                        coeff=coefficient_l3)
-        self._apply_thresholds()
+        with obs.stage("api_align_s", file=self._file_id):
+            with obs.stage("spice_load_prep_s"):
+                hdul = fitsio.open(self.small_fov_to_correct)
+                self.header_spice_unflattened = \
+                    hdul[self.small_fov_window].header.copy()
+                self._extract_spice_data_header(level=self._infer_level(),
+                                                coeff=coefficient_l3)
+            self._apply_thresholds()
 
-        # reference pointing values of both headers; every lag candidate
-        # shifts both by the full 5-vector like the reference's _step
-        # (alignment_spice.py:376-388 via _shift_header)
-        refs_s = _capture_pointing_refs(self.hdr_small)
-        refs_u = _capture_pointing_refs(self.header_spice_unflattened)
+            # reference pointing values of both headers; every lag candidate
+            # shifts both by the full 5-vector like the reference's _step
+            # (alignment_spice.py:376-388 via _shift_header)
+            refs_s = _capture_pointing_refs(self.hdr_small)
+            refs_u = _capture_pointing_refs(self.header_spice_unflattened)
 
-        builder = self._get_builder()
-        l1d, l2d, l3d, l4d, l5d = self._lags_deg(wrap=True)
-        shape = (len(l1d), len(l2d), len(l3d), len(l4d), len(l5d))
-        corr = np.zeros(shape)
+            builder = self._get_builder()
+            l1d, l2d, l3d, l4d, l5d = self._lags_deg(wrap=True)
+            shape = (len(l1d), len(l2d), len(l3d), len(l4d), len(l5d))
+            corr = np.zeros(shape)
 
-        progress = Progress(total=int(np.prod(shape)),
-                            label="iterative context-raster lag search",
-                            enabled=self.display_progress_bar)
-        small_d = to_tensor(self.data_small, device=self.device,
-                            dtype=torch.float32)
+            progress = Progress(total=int(np.prod(shape)),
+                                label="iterative context-raster lag search",
+                                enabled=self.display_progress_bar)
+            small_d = to_tensor(self.data_small, device=self.device,
+                                dtype=torch.float32)
 
-        def score_stack(hdrs_large, hdrs_s, data_stack):
-            # one device call for the (L, ny, nx) stack of composed rasters
-            # against the SPICE image through the L shifted headers, the
-            # scores copied to the host once
-            pl, kind_l = coords.stack_wcs_params(hdrs_large)
-            ps, kind_s = coords.stack_wcs_params(hdrs_s)
-            vals = _iter_chunk_scores(
-                {k: torch.as_tensor(v, device=self.device)
-                 for k, v in pl.items()},
-                {k: torch.as_tensor(v, device=self.device)
-                 for k, v in ps.items()},
-                data_stack, small_d, kind_l, kind_s, self.order, method)
-            return vals.to(torch.float64).cpu().numpy()
+            def score_stack(hdrs_large, hdrs_s, data_stack):
+                # one device call for the (L, ny, nx) stack of composed
+                # rasters against the SPICE image through the L shifted
+                # headers, the scores copied to the host once
+                pl, kind_l = coords.stack_wcs_params(hdrs_large)
+                ps, kind_s = coords.stack_wcs_params(hdrs_s)
+                vals = _iter_chunk_scores(
+                    {k: torch.as_tensor(v, device=self.device)
+                     for k, v in pl.items()},
+                    {k: torch.as_tensor(v, device=self.device)
+                     for k, v in ps.items()},
+                    data_stack, small_d, kind_l, kind_s, self.order, method)
+                return vals.to(torch.float64).cpu().numpy()
 
-        def lag_headers(d1, d2, d3, d4, d5):
-            # shift both the flattened and the unflattened headers by the
-            # full lag vector (crota/cdelt rebuild the spatial PC block)
-            hdr_s = self.hdr_small.copy()
-            _apply_full_lag(hdr_s, refs_s, d1, d2, d3, d4, d5)
-            hdr_u = self.header_spice_unflattened.copy()
-            _apply_full_lag(hdr_u, refs_u, d1, d2, d3, d4, d5)
-            return hdr_s, hdr_u
+            def lag_headers(d1, d2, d3, d4, d5):
+                # shift both the flattened and the unflattened headers by
+                # the full lag vector (crota/cdelt rebuild the spatial PC
+                # block)
+                hdr_s = self.hdr_small.copy()
+                _apply_full_lag(hdr_s, refs_s, d1, d2, d3, d4, d5)
+                hdr_u = self.header_spice_unflattened.copy()
+                _apply_full_lag(hdr_u, refs_u, d1, d2, d3, d4, d5)
+                return hdr_s, hdr_u
 
-        if batch_lags:
-            # one prep of the unshifted header: pointing lags only touch the
-            # spatial WCS block, which passes through the axis-dropping prep
-            # verbatim — so shifting the prepped 2-D spatial header by the
-            # lag vector equals prepping the shifted 4-D header (the parity
-            # test pins this against the sequential path)
-            builder._prepare_spectro_meta(self.header_spice_unflattened,
-                                          False, 2)
-            hdr_sp0 = builder.hdr_spice_
-            refs_sp = _capture_pointing_refs(hdr_sp0)
+            if batch_lags:
+                # one prep of the unshifted header: pointing lags only touch
+                # the spatial WCS block, which passes through the
+                # axis-dropping prep verbatim — so shifting the prepped 2-D
+                # spatial header by the lag vector equals prepping the
+                # shifted 4-D header (the parity test pins this against the
+                # sequential path)
+                builder._prepare_spectro_meta(self.header_spice_unflattened,
+                                              False, 2)
+                hdr_sp0 = builder.hdr_spice_
+                refs_sp = _capture_pointing_refs(hdr_sp0)
 
-            all_idx = list(np.ndindex(*shape))  # C order: flat index
-            corr_flat = corr.reshape(-1)
-            chunk_n = max(1, int(lag_chunk))
-            for c0 in range(0, len(all_idx), chunk_n):
-                chunk = all_idx[c0: c0 + chunk_n]
-                hdrs_s, hdrs_sp = [], []
-                for idx in chunk:
-                    d = (l1d[idx[0]], l2d[idx[1]], l3d[idx[2]],
-                         l4d[idx[3]], l5d[idx[4]])
-                    hs = self.hdr_small.copy()
-                    _apply_full_lag(hs, refs_s, *d)
-                    hdrs_s.append(hs)
-                    hsp = hdr_sp0.copy()
-                    _apply_full_lag(hsp, refs_sp, *d)
-                    hdrs_sp.append(hsp)
-                with obs.stage("iter_compose_s"):
-                    data_stack, hdrs_large = \
-                        builder.compose_many_from_headers(
-                            [self.header_spice_unflattened] * len(chunk),
-                            spatial_headers=hdrs_sp, as_numpy=False)
-                with obs.stage("iter_score_s"):
-                    corr_flat[c0: c0 + len(chunk)] = score_stack(
-                        hdrs_large, hdrs_s, data_stack)
-                progress.step(len(chunk))
-        else:
-            # the composed raster rebuilt from each shifted 4-D header, then
-            # scored as a stack of one
-            for idx in np.ndindex(*shape):
-                hdr_s, hdr_u = lag_headers(l1d[idx[0]], l2d[idx[1]],
-                                           l3d[idx[2]], l4d[idx[3]],
-                                           l5d[idx[4]])
-                builder.process_from_header(hdr_spice=hdr_u,
-                                            print_filename=False)
-                data = to_tensor(builder.data_composed[None],
-                                 device=self.device, dtype=torch.float64)
-                corr[idx] = score_stack([builder.hdr_composed], [hdr_s],
-                                        data)[0]
-                progress.step()
-        corr6 = corr[..., np.newaxis]
-        if return_type == "corr":
-            return corr6
-        return self._make_results(corr6)
+                all_idx = list(np.ndindex(*shape))  # C order: flat index
+                corr_flat = corr.reshape(-1)
+                chunk_n = max(1, int(lag_chunk))
+                obs.logger.info(
+                    "engine path: iterative context raster (%d lags in %d "
+                    "chunks of %d)", len(all_idx),
+                    -(-len(all_idx) // chunk_n), chunk_n)
+                for c0 in range(0, len(all_idx), chunk_n):
+                    chunk = all_idx[c0: c0 + chunk_n]
+                    hdrs_s, hdrs_sp = [], []
+                    with obs.stage("iter_lag_headers_s"):
+                        for idx in chunk:
+                            d = (l1d[idx[0]], l2d[idx[1]], l3d[idx[2]],
+                                 l4d[idx[3]], l5d[idx[4]])
+                            hs = self.hdr_small.copy()
+                            _apply_full_lag(hs, refs_s, *d)
+                            hdrs_s.append(hs)
+                            hsp = hdr_sp0.copy()
+                            _apply_full_lag(hsp, refs_sp, *d)
+                            hdrs_sp.append(hsp)
+                    with obs.stage("iter_compose_s", card=True):
+                        data_stack, hdrs_large = \
+                            builder.compose_many_from_headers(
+                                [self.header_spice_unflattened] * len(chunk),
+                                spatial_headers=hdrs_sp, as_numpy=False)
+                    with obs.stage("iter_score_s", card=True):
+                        corr_flat[c0: c0 + len(chunk)] = score_stack(
+                            hdrs_large, hdrs_s, data_stack)
+                    progress.step(len(chunk))
+            else:
+                # the composed raster rebuilt from each shifted 4-D header,
+                # then scored as a stack of one
+                obs.logger.info(
+                    "engine path: iterative context raster, one lag at a time "
+                    "(%d lags)", corr.size)
+                for idx in np.ndindex(*shape):
+                    hdr_s, hdr_u = lag_headers(l1d[idx[0]], l2d[idx[1]],
+                                               l3d[idx[2]], l4d[idx[3]],
+                                               l5d[idx[4]])
+                    builder.process_from_header(hdr_spice=hdr_u,
+                                                print_filename=False)
+                    data = to_tensor(builder.data_composed[None],
+                                     device=self.device, dtype=torch.float64)
+                    corr[idx] = score_stack([builder.hdr_composed], [hdr_s],
+                                            data)[0]
+                    progress.step()
+            corr6 = corr[..., np.newaxis]
+            if return_type == "corr":
+                return corr6
+            return self._make_results(corr6)

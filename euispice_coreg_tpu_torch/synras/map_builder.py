@@ -29,7 +29,7 @@ from ..core import wcs as wcs2d
 from ..core.header import ensure_pcij, wcs_params_from_header
 from ..core.ndwcs import NDWCS
 from ..engine import lag_search
-from ..utils import coords, timeutils, units
+from ..utils import coords, obs, timeutils, units
 from ..utils.torchcfg import resolve_device, to_tensor
 
 
@@ -87,6 +87,8 @@ class ComposedMapBuilder(MapBuilder):
         self.data_composed = None
         self.hdr_composed = None
         self._imager_cache: dict[str, tuple] = {}
+        # the id of the builder's spans: the search's where one builds it
+        self._file_id = obs.current_file() or obs.new_file_id()
         self._extract_imager_metadata()
 
     def _extract_imager_metadata(self):
@@ -130,12 +132,17 @@ class ComposedMapBuilder(MapBuilder):
 
         path = self.list_imager_paths[idx]
         if path not in self._imager_cache:
-            hdul_im = fits.open(path)
-            hdu_im = hdul_im[self.window_imager]
-            hdr_imager = hdu_im.header.copy()
-            ensure_pcij(hdr_imager, force_crota_0=True)
-            data_imager = to_tensor(hdu_im.data, device=self.device,
-                                    dtype=torch.float32)
+            with obs.stage("synras_frames_load_s", file=self._file_id):
+                hdul_im = fits.open(path)
+                hdu_im = hdul_im[self.window_imager]
+                hdr_imager = hdu_im.header.copy()
+                ensure_pcij(hdr_imager, force_crota_0=True)
+                read0 = obs.counter("fits_read_bytes")
+                data = hdu_im.data
+                obs.count("synras_frame_read_bytes",
+                          obs.counter("fits_read_bytes") - read0)
+                data_imager = to_tensor(data, device=self.device,
+                                        dtype=torch.float32)
             self._imager_cache[path] = (data_imager, hdr_imager)
         return self._imager_cache[path]
 
@@ -201,18 +208,20 @@ class ComposedMapBuilder(MapBuilder):
             if print_filename:
                 print(f"\nUse imager "
                       f"{os.path.basename(self.list_imager_paths[idx])}")
-            p = wcs_params_from_header(hdr_imager)
-            x_im, y_im = wcs2d.world_to_pixel(
-                p.as_dict(), lon_spice[:, cols], lat_spice[:, cols],
-                kind=p.kind, xp=np,
-            )
-            self.data_composed[:, cols] = lag_search.resample_to_grid(
-                data_imager, x_im, y_im, order=2, device=self.device)
+            with obs.stage("synras_compose_s", card=True, file=self._file_id):
+                p = wcs_params_from_header(hdr_imager)
+                x_im, y_im = wcs2d.world_to_pixel(
+                    p.as_dict(), lon_spice[:, cols], lat_spice[:, cols],
+                    kind=p.kind, xp=np,
+                )
+                self.data_composed[:, cols] = lag_search.resample_to_grid(
+                    data_imager, x_im, y_im, order=2, device=self.device)
             list_hdr_imagers_used.extend([hdr_imager] * len(cols))
 
-        self.hdr_composed = self._synthesize_header(
-            hdr_spice, hdr_im, list_hdr_imagers_used, naxis1, naxis2,
-            self.data_composed.shape, keep_original_imager_pixel_size)
+        with obs.stage("synras_headers_s", file=self._file_id):
+            self.hdr_composed = self._synthesize_header(
+                hdr_spice, hdr_im, list_hdr_imagers_used, naxis1, naxis2,
+                self.data_composed.shape, keep_original_imager_pixel_size)
         wave = self.hdr_composed.get("WAVELNTH", 0)
         detector = self.hdr_composed.get(
             "DETECTOR", self.hdr_composed.get("INSTRUME"))
@@ -366,20 +375,22 @@ class ComposedMapBuilder(MapBuilder):
             if print_filename:
                 print(f"\nUse imager "
                       f"{os.path.basename(self.list_imager_paths[idx])}")
-            p = wcs_params_from_header(hdr_imager)
-            cols_d = torch.as_tensor(cols, device=dev)
-            data[:, :, cols_d] = _sample_frame_all_lags(
-                params, kind, p.as_dict(), p.kind, xg[:, cols_d],
-                yg[:, cols_d], data_imager).to(torch.float64)
+            with obs.stage("synras_compose_s", card=True, file=self._file_id):
+                p = wcs_params_from_header(hdr_imager)
+                cols_d = torch.as_tensor(cols, device=dev)
+                data[:, :, cols_d] = _sample_frame_all_lags(
+                    params, kind, p.as_dict(), p.kind, xg[:, cols_d],
+                    yg[:, cols_d], data_imager).to(torch.float64)
             for c in cols:
                 list_hdr_imagers_used[c] = hdr_imager
 
         headers = []
-        for hdr, (meta, hdr_spice_) in zip(hdrs_spice, metas):
-            self.hdr_spice_ = hdr_spice_
-            headers.append(self._synthesize_header(
-                hdr, meta[0], list_hdr_imagers_used, naxis1, naxis2,
-                tuple(data.shape[1:]), keep_original_imager_pixel_size))
+        with obs.stage("synras_headers_s", file=self._file_id):
+            for hdr, (meta, hdr_spice_) in zip(hdrs_spice, metas):
+                self.hdr_spice_ = hdr_spice_
+                headers.append(self._synthesize_header(
+                    hdr, meta[0], list_hdr_imagers_used, naxis1, naxis2,
+                    tuple(data.shape[1:]), keep_original_imager_pixel_size))
         self.data_composed = data[-1].cpu().numpy()
         self.hdr_composed = headers[-1]
         return (data.cpu().numpy() if as_numpy else data), headers

@@ -124,6 +124,12 @@ def count(name: str, n: int):
         _scope.counters[name] = _scope.counters.get(name, 0) + n
 
 
+def counter(name: str) -> int:
+    """The counter ``name`` of the active collect_stages() scope so far; 0
+    outside one."""
+    return _scope.counters.get(name, 0) if _scope is not None else 0
+
+
 @contextlib.contextmanager
 def stage(label: str, *, card: bool = False, file: int | None = None,
           level=logging.DEBUG):

@@ -3,7 +3,9 @@ CPU: the parent and file id of each span from ``Alignment`` through
 ``align_using_*`` to ``return_corrected_header``, nothing recorded while
 no scope collects and no profiler records, the spans as ranges of a
 ``torch.profiler`` trace that ``coreg_bench.trace`` reads, and the bytes
-and data units ``io/fits.open`` counts.  The card extent of a card span is tested on the
+and data units ``io/fits.open`` counts; the spans and counters of the SPICE
+path (the synthetic raster, the iterative context raster and the L2 load)
+under their file ids.  The card extent of a card span is tested on the
 card, in ``tests/test_torch_cuda.py``."""
 import os
 
@@ -12,8 +14,12 @@ import pytest
 import torch
 
 import fixtures as fx
+from euispice_coreg_tpu.io import fits as jfits
 from euispice_coreg_tpu_torch import Alignment
-from euispice_coreg_tpu_torch.utils import obs
+from euispice_coreg_tpu_torch.hdrshift import (
+    AlignementSpiceIterativeContextRaster, AlignmentSpice)
+from euispice_coreg_tpu_torch.synras import SPICEComposedMapBuilder
+from euispice_coreg_tpu_torch.utils import obs, timeutils
 
 LAGS = dict(lag_crval1=np.arange(4, 13, 2.0), lag_crval2=np.arange(-8, 1, 2.0),
             small_fov_window=0, large_fov_window=0, device="cpu")
@@ -163,3 +169,111 @@ def test_timed_is_stage_at_info(caplog):
     levels = {r.getMessage().split(":")[0]: r.levelname
               for r in caplog.records}
     assert levels == {"x_s": "INFO", "y_s": "DEBUG"}
+
+
+# ---------------------------------------------------------------------------
+# the SPICE path: the synthetic raster, the iterative context raster
+# ---------------------------------------------------------------------------
+
+FRAME_SHAPE = (96, 96)
+FRAME_BYTES = 96 * 96 * 4  # one float32 data unit
+ITER_LAGS = dict(lag_crval1=[-4.0, 0.0, 4.0], lag_crval2=[-4.0, 0.0, 4.0],
+                 lag_crota=[0.0, 0.2], small_fov_window=0,
+                 large_fov_window=0, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def spice_files(tmp_path_factory):
+    """A 48-column SPICE L2 raster scanned in 240 s and two imager frames
+    taken 60 s and 180 s after it began."""
+    tmp = tmp_path_factory.mktemp("spice_spans")
+    _, raster = fx.make_spice_pair(tmp)
+    t0 = timeutils.parse_fits_time(
+        jfits.open(raster)[0].header["DATE-BEG"])
+    frames = []
+    for k in range(2):
+        hdr = fx.make_header(FRAME_SHAPE, (24.0, 24.0), (0.0, 0.0), 0.0)
+        hdr["DATE-AVG"] = timeutils.format_fits_time(t0 + 60.0 + 120.0 * k)
+        frames.append(str(tmp / f"frame_{k}.fits"))
+        jfits.write(frames[-1], [jfits.PrimaryHDU(
+            data=fx.render_helioprojective(hdr).astype(np.float32),
+            header=hdr)])
+    return raster, frames
+
+
+def _count(spans, name):
+    return sum(s.name == name for s in spans)
+
+
+@pytest.mark.parametrize("batch_lags", [True, False])
+def test_iterative_search_spans_share_its_file_id(spice_files, caplog,
+                                                  batch_lags):
+    """Every span of the search, the builder's included, runs under the
+    search's file id inside ``api_align_s``: batched, three chunks of lag
+    headers, composes and scores, each frame read once and composed once a
+    chunk; one lag at a time, the builder's spans straight under the
+    search.  One route line names the search."""
+    raster, frames = spice_files
+    a = AlignementSpiceIterativeContextRaster(frames, raster, 600.0,
+                                              **ITER_LAGS)
+    with caplog.at_level("INFO", logger=obs.logger.name), \
+            obs.collect_stages() as st:
+        res = a.align_using_helioprojective(batch_lags=batch_lags,
+                                            lag_chunk=8)
+        res.return_corrected_header(0)
+    spans = st.spans
+    assert {s.file for s in spans} == {a._file_id}
+    assert [s.name for s in spans if s.parent is None] == [
+        "api_align_s", "api_corrected_header_s"]
+    align = next(i for i, s in enumerate(spans) if s.name == "api_align_s")
+    children = {s.name for s in spans if s.parent == align}
+    assert {"spice_load_prep_s", "api_fit_s"} <= children
+    builder = {"synras_frames_load_s", "synras_compose_s",
+               "synras_headers_s"}
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("engine path:")]
+    if batch_lags:
+        chunks = {"iter_lag_headers_s", "iter_compose_s", "iter_score_s"}
+        assert chunks <= children
+        assert [_count(spans, n) for n in sorted(chunks)] == [3, 3, 3]
+        assert {spans[s.parent].name for s in spans
+                if s.name in builder} == {"iter_compose_s"}
+        assert [_count(spans, n) for n in sorted(builder)] == [6, 2, 3]
+        assert lines == ["engine path: iterative context raster (18 lags "
+                         "in 3 chunks of 8)"]
+    else:
+        assert builder <= children
+        assert [_count(spans, n) for n in sorted(builder)] == [36, 2, 18]
+        assert lines == ["engine path: iterative context raster, one lag "
+                         "at a time (18 lags)"]
+    assert st.counters["synras_frame_read_bytes"] == 2 * FRAME_BYTES
+    assert st.card == {}
+
+
+def test_synthetic_raster_and_spice_load_spans_carry_file_ids(spice_files,
+                                                              tmp_path):
+    """A builder outside any search opens its spans under an id of its
+    own: each frame read and composed once, the header once; then
+    ``AlignmentSpice`` reads the composed raster and the L2 cube under its
+    file id, before its search."""
+    raster, frames = spice_files
+    with obs.collect_stages() as st:
+        b = SPICEComposedMapBuilder(raster, frames, threshold_time=600.0,
+                                    window_imager=0, window_spectro=0,
+                                    device="cpu")
+        path = b.process(str(tmp_path), basename_output="composed.fits",
+                         print_filename=False, return_synras_name=True)
+        a = AlignmentSpice(path, raster, **dict(
+            ITER_LAGS, lag_crota=None))
+        a.align_using_helioprojective()
+    assert b._file_id != a._file_id and obs.current_file() is None
+    top = [s for s in st.spans if s.parent is None]
+    assert [(s.name, s.file) for s in top if s.file == b._file_id] == [
+        ("synras_frames_load_s", b._file_id),
+        ("synras_compose_s", b._file_id),
+        ("synras_frames_load_s", b._file_id),
+        ("synras_compose_s", b._file_id),
+        ("synras_headers_s", b._file_id)]
+    assert [s.name for s in top if s.file == a._file_id] == [
+        "api_fits_load_s", "spice_load_prep_s", "api_align_s"]
+    assert st.counters["synras_frame_read_bytes"] == 2 * FRAME_BYTES
